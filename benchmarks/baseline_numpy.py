@@ -7,7 +7,7 @@ a Python loop over the M θ-particles calling a per-θ bootstrap filter step
 (vectorized over N, as Julia's compiled loops effectively are), multinomial
 resampling every step, PMMH rejuvenation re-running full-history filters
 per θ (smc_samplers.jl:103-148,308-340). Run it on the CPU of the bench
-machine to produce the wall-clock the TPU build is compared against:
+machine to produce the wall-clock the accelerator build is compared against:
 
     python benchmarks/baseline_numpy.py [--t 241] [--m 512] [--n 1024]
 

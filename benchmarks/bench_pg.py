@@ -1,4 +1,4 @@
-"""Particle-Gibbs throughput on TPU (capability row — the reference has
+"""Particle-Gibbs throughput (capability row — the reference has
 no PMCMC sampler to baseline against; /root/reference's only MCMC is the
 PMMH rejuvenation inside its SMC samplers, smc_samplers.jl:103-148).
 
@@ -64,13 +64,10 @@ def main():
     )
 
     # Two dispatch modes, both timed (code-review r5 asked for whole-run
-    # jit; MEASURED on v5e the whole-program jit is ~2x SLOWER —
-    # 10.96 s vs 5.96 s at the default config, deterministic across
-    # sessions — XLA's layout/fusion choices for the one giant program
-    # lose to dispatching the already-compiled setup scans + sweeps scan
-    # as separate executions; per-call Python retrace overhead is a few
-    # hundred ms, far below that gap). The headline is the faster mode;
-    # both are reported so the comparison stays auditable.
+    # jit): one outer jit over the whole chain vs dispatching the
+    # already-compiled setup scans + sweeps scan as separate executions.
+    # The headline is the faster mode; both are reported so the comparison
+    # stays auditable.
     def run_eager(k):
         return smc.particle_gibbs(k, smc.ucsv_model, prior, y, cfg)
 

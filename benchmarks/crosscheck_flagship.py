@@ -23,7 +23,7 @@ forces a flat tolerance; without it and without a calibration file the
 legacy 0.5·sd default applies.
 
 Runs on the vendored PCE series (the flagship example's data). Opt-in
-slow check — minutes at the flagship size on 1× v5e:
+slow check:
 
   python benchmarks/crosscheck_flagship.py [--m 512] [--n 8192] [--quick]
   python benchmarks/crosscheck_flagship.py --quick --calibrate 8

@@ -58,7 +58,7 @@ def load_pce():
     from sequential_monte_carlo_tpu.utils.dataio import read_csv_column
 
     path = os.path.join(HERE, "data", "pce_inflation.csv")
-    values = read_csv_column(path, 1)  # native mmap loader (csrc/dataio.cpp)
+    values = read_csv_column(path, 1)
     with open(path) as f:
         dates = np.array(
             [row["date"] for row in csv.DictReader(f)], dtype="datetime64[D]"

@@ -1,6 +1,6 @@
-"""sequential_monte_carlo_tpu — a TPU-native Sequential Monte Carlo engine.
+"""sequential_monte_carlo_tpu — a Sequential Monte Carlo engine in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 charlesknipp/sequential_monte_carlo (SequentialMonteCarlo.jl): state-space
 models, particle/Kalman filters, and joint state+parameter inference via
 density-tempered SMC, online SMC², and IBIS — redesigned around `vmap`/
@@ -12,7 +12,6 @@ Layer map (SURVEY.md §1):
   ops/            L2  weight math, resamplers, particle & Kalman filters
   samplers/       L3  SMC², density-tempered SMC, IBIS, PMMH rejuvenation
   parallel/       L4  device meshes, sharded sampler steps, collectives
-  kernels/        L5  Pallas TPU kernels for the hot paths
   analysis/       L6  posterior summaries and plotting
 """
 

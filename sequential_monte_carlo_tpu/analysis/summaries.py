@@ -36,10 +36,10 @@ def weighted_quantile_binned(x: jax.Array, w: jax.Array, ps,
     """Sort-free weighted quantiles via a fixed-grid histogram CDF.
 
     Same estimand as :func:`weighted_quantile` but O(N·K) compare-reduce
-    work instead of an O(N log² N) TPU sort — built for per-step
+    work instead of an O(N log N) sort — built for per-step
     ``collect_fn`` use inside the online scan, where sorting the full
-    (M, N) cloud every step dominated the flagship example's wall-clock
-    (PERF_NOTES.md round-3 profile). Bin masses are accumulated with one
+    (M, N) cloud every step would dominate the flagship example's
+    wall-clock. Bin masses are accumulated with one
     fused compare+reduce, the CDF is inverted on the K edges and linearly
     interpolated inside the landing bin; max error is one bin width of the
     per-row particle range (K=128 ⇒ <1% of the range, far below the

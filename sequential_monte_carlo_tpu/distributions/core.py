@@ -3,7 +3,7 @@
 The reference delegates all sampling / density evaluation to Distributions.jl
 (see /root/reference/src/state_space_models.jl — ``Normal``, ``MvNormal``,
 ``TupleProduct`` usage at state_space_models.jl:91,104,180,237-260 and the prior
-constructions in README.md:81-85). This module provides the TPU-native
+constructions in README.md:81-85). This module provides the array-first
 equivalent: every distribution is a pytree of arrays with vectorized
 ``sample(key, sample_shape)`` / ``log_prob(x)`` / ``in_support(x)`` that
 broadcast over arbitrary batch shapes, so a whole particle cloud (or a whole
@@ -134,7 +134,7 @@ class TruncatedNormal:
 
     Matches Distributions.jl ``TruncatedNormal(mu, sigma, a, b)`` used in the
     reference prior (README.md:82). Sampling via inverse-CDF — branch-free and
-    vectorized, exact on TPU.
+    vectorized.
     """
 
     loc: jax.Array

@@ -15,7 +15,7 @@ density at full rank. Both paths compute the Mahalanobis form in the factor
 basis (no explicit inverse reconstruction), which keeps f32 error at the
 ~1e-6 level instead of ~1e-3.
 
-Matmuls here are the MXU path: a particle cloud of shape (N, dx) propagates
+Matmuls here are the matrix-unit path: a particle cloud of shape (N, dx) propagates
 as one (N, dx)@(dx, dx) matmul.
 """
 from __future__ import annotations

@@ -3,12 +3,12 @@
 The reference defines the SSM contract as three distribution-valued methods —
 ``initial_dist(m)``, ``transition(m, x)``, ``observation(m, x)`` — plus
 ``preallocate`` / ``get_types`` (/root/reference/src/state_space_models.jl:9,30-42).
-The TPU-native contract is the same three densities as *pure functions over
+The array-first contract is the same three densities as *pure functions over
 arrays*:
 
   * states always carry a trailing state-dim axis: a particle cloud is
     ``(N, dx)``, a θ-batched cloud is ``(M, N, dx)`` — static shapes that XLA
-    tiles onto the VPU/MXU;
+    tiles onto the device;
   * each method must broadcast over arbitrary leading batch axes (the filters
     never loop over particles);
   * models are pytrees of parameter arrays, so a whole θ-cloud of models is a

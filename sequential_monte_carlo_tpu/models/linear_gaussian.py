@@ -1,11 +1,11 @@
 """Linear-Gaussian state-space models (L1 model zoo).
 
 Reimplements the reference's ``LinearModel{AT,BT,QT,RT,XT,ΣT}`` family
-(/root/reference/src/state_space_models.jl:46-209) TPU-first: one model type
+(/root/reference/src/state_space_models.jl:46-209) as one model type
 holding matrix-shaped parameters ``A (dx,dx)``, ``B (dx,)`` (univariate
 observation, as the reference assumes — state_space_models.jl:61-65),
 variances ``Q (dx,dx)`` and scalar ``R``, with a Python-level dx==1 fast path
-that keeps the whole univariate filter on the VPU (no eigendecompositions).
+that keeps the whole univariate filter elementwise (no eigendecompositions).
 
   x_t ~ N(A x_{t-1}, Q)        (state_space_models.jl:88-92, 163-170)
   y_t ~ N(B·x_t,     R)        (state_space_models.jl:95-100, 172-179)
@@ -19,47 +19,10 @@ Note Q, R, Σ0 are *variances* (the reference passes ``sqrt(Q)`` etc. to
 """
 from __future__ import annotations
 
-import functools
-import math
-
 import jax.numpy as jnp
 
 from ..distributions import MvNormal, Normal, Product
 from ..utils.struct import pytree_dataclass
-
-_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
-
-
-@functools.lru_cache(maxsize=None)
-def _lg_update(dx: int):
-    """Per-particle LG step at static state dimension ``dx``, traced into
-    the fused Pallas kernel (kernels/propagate_pallas.py). The matvecs
-    A@x and F@z unroll to elementwise FMA chains over the dx state planes
-    (dx is tiny — 1 for the univariate family, 2 for Hodrick–Prescott);
-    F is any factor with F·Fᵀ = Q (eigh-based, so singular Q works).
-    Cached per dx so the traced function is a stable jit cache key."""
-
-    def update(par, y, state, normals):
-        A = par[: dx * dx]
-        F = par[dx * dx : 2 * dx * dx]
-        B = par[2 * dx * dx : 2 * dx * dx + dx]
-        r = par[-1]
-        x_new = []
-        for i in range(dx):
-            acc = A[i * dx] * state[0]
-            for j in range(1, dx):
-                acc = acc + A[i * dx + j] * state[j]
-            for j in range(dx):
-                acc = acc + F[i * dx + j] * normals[j]
-            x_new.append(acc)
-        loc = B[0] * x_new[0]
-        for i in range(1, dx):
-            loc = loc + B[i] * x_new[i]
-        delta = y - loc
-        logw = -0.5 * delta * delta / r - 0.5 * jnp.log(r) - _HALF_LOG_2PI
-        return tuple(x_new), logw
-
-    return update
 
 
 @pytree_dataclass
@@ -92,62 +55,6 @@ class LinearGaussianModel:
     def observation_distribution(self, x):
         loc = jnp.einsum("...i,...i->...", self.B, x)
         return Normal(loc, jnp.sqrt(self.R))
-
-    # -- fused fast path (kernels/propagate_pallas.py) -----------------------
-    def fused_prep(self):
-        """Step-invariant prep for the fused kernel: any F with F·Fᵀ = Q.
-
-        The eigh factor handles singular Q (Hodrick–Prescott) — same
-        family as the MvNormal sampler's. Q is constant over a filter's
-        time scan, so callers (ops/batched_filter.py) compute this ONCE
-        before the scan and pass it back through ``prep=`` rather than
-        paying a batched eigh per step inside the scan body (ADVICE r4).
-        """
-        dx = self.state_dim
-        if dx == 1:
-            return jnp.sqrt(self.Q)
-        s, V = jnp.linalg.eigh(self.Q)
-        return V * jnp.sqrt(jnp.clip(s, 0.0))[..., None, :]
-
-    def fused_propagate_reweight(self, seed, y, particles, tile_offset=0,
-                                 interpret: bool = False,
-                                 normalize: bool = False, prep=None,
-                                 carry_logw=None):
-        from ..kernels.propagate_pallas import fused_elementwise_step
-
-        dx = self.state_dim
-        m = particles.shape[0]
-        A = jnp.broadcast_to(self.A, (m, dx, dx))
-        F = jnp.broadcast_to(
-            prep if prep is not None else self.fused_prep(), (m, dx, dx)
-        )
-        B = jnp.broadcast_to(self.B, (m, dx))
-        R = jnp.broadcast_to(self.R, (m,))
-        params = (
-            tuple(A[:, i, j] for i in range(dx) for j in range(dx))
-            + tuple(F[:, i, j] for i in range(dx) for j in range(dx))
-            + tuple(B[:, i] for i in range(dx))
-            + (R,)
-        )
-        planes = tuple(particles[..., c] for c in range(dx))
-        out = fused_elementwise_step(
-            _lg_update(dx), seed, y, params, planes, n_normals=dx,
-            tile_offset=tile_offset, normalize=normalize, interpret=interpret,
-            carry_logw=carry_logw,
-        )
-        if normalize:
-            new_planes, log_norm, row_lse, ess = out
-            return (
-                jnp.stack(new_planes, axis=-1),
-                log_norm, row_lse[:, 0], ess[:, 0],
-            )
-        new_planes, logw = out
-        return jnp.stack(new_planes, axis=-1), logw
-
-    @staticmethod
-    def fused_tiles(m: int) -> int:
-        """See UCSVModel.fused_tiles — grid tiles for an M-row block."""
-        return m // 8 if m % 8 == 0 else 1
 
 
 def _as_matrix(v, dx):

@@ -11,26 +11,10 @@ log-volatility model:
 """
 from __future__ import annotations
 
-import math
-
 import jax.numpy as jnp
 
 from ..distributions import Normal, Product
 from ..utils.struct import pytree_dataclass
-
-_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
-
-
-def _sv_update(par, y, state, normals):
-    """Per-particle SV step, traced into the fused Pallas kernel
-    (kernels/propagate_pallas.py): AR(1) log-vol transition + the
-    N(0, exp(x'))-observation log-density."""
-    mu, phi, sigma = par
-    (x,) = state
-    (z,) = normals
-    x_new = mu + phi * (x - mu) + sigma * z
-    logw = -0.5 * (y * y) * jnp.exp(-x_new) - 0.5 * x_new - _HALF_LOG_2PI
-    return (x_new,), logw
 
 
 @pytree_dataclass
@@ -58,37 +42,6 @@ class StochasticVolatilityModel:
 
     def observation_distribution(self, x):
         return Normal(jnp.zeros(x.shape[:-1]), jnp.exp(0.5 * x[..., 0]))
-
-    # -- fused fast path (kernels/propagate_pallas.py) -----------------------
-    # Same contract as UCSVModel.fused_propagate_reweight: called by
-    # ops/batched_filter.py with a θ-stacked model (fields (M,)) and the
-    # whole (M, N, 1) cloud.
-    def fused_propagate_reweight(self, seed, y, particles, tile_offset=0,
-                                 interpret: bool = False,
-                                 normalize: bool = False, carry_logw=None):
-        from ..kernels.propagate_pallas import fused_elementwise_step
-
-        x = particles[..., 0]
-        m = x.shape[0]
-        params = tuple(
-            jnp.broadcast_to(p, (m,)) for p in (self.mu, self.phi, self.sigma)
-        )
-        out = fused_elementwise_step(
-            _sv_update, seed, y, params, (x,), n_normals=1,
-            tile_offset=tile_offset, normalize=normalize, interpret=interpret,
-            carry_logw=carry_logw,
-        )
-        if normalize:
-            planes, log_norm, row_lse, ess = out
-            return planes[0][..., None], log_norm, row_lse[:, 0], ess[:, 0]
-        planes, logw = out
-        return planes[0][..., None], logw
-
-    @staticmethod
-    def fused_tiles(m: int) -> int:
-        """Grid tiles of the fused kernel for an M-row block (TILE_M=8 when
-        divisible) — see UCSVModel.fused_tiles."""
-        return m // 8 if m % 8 == 0 else 1
 
 
 def stochastic_volatility(mu=-1.0, phi=0.95, sigma=0.3):

@@ -12,36 +12,14 @@ heteroskedastic, 3-dim state s = (x, log σε, log ση):
 ``Normal`` at state_space_models.jl:236-241.) The heterogeneous 3-component
 transition uses :class:`TupleProduct` — SURVEY.md §0.2's missing helper,
 realized natively. Everything is elementwise over the particle cloud: the
-whole propagate+reweight step is VPU work that XLA fuses into one kernel
-(with a hand-written Pallas variant in ``kernels/ucsv_pallas.py``).
+whole propagate+reweight step is elementwise work that XLA fuses.
 """
 from __future__ import annotations
-
-import math
 
 import jax.numpy as jnp
 
 from ..distributions import Normal, TupleProduct
 from ..utils.struct import pytree_dataclass
-
-_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
-
-
-def _ucsv_update(par, y, state, normals):
-    """Per-particle UC-SV step for the generic fused kernel builder
-    (kernels/propagate_pallas.py) — op-for-op the math of the bespoke
-    ``ucsv_pallas`` kernel (same Box–Muller draw order), so the two routes
-    are bitwise-equal at the same seed."""
-    ge, gn = par
-    x, lse, lsn = state
-    z0, z1, z2 = normals
-    x_new = x + jnp.exp(0.5 * lse) * z0
-    lse_new = lse + ge * z1
-    lsn_new = lsn + gn * z2
-    s_inv = jnp.exp(-0.5 * lsn_new)
-    zz = (y - x_new) * s_inv
-    logw = -0.5 * zz * zz - 0.5 * lsn_new - _HALF_LOG_2PI
-    return (x_new, lse_new, lsn_new), logw
 
 
 @pytree_dataclass
@@ -80,48 +58,6 @@ class UCSVModel:
     def observation_distribution(self, s):
         # ≡ state_space_models.jl:244-247
         return Normal(s[..., 0], jnp.exp(0.5 * s[..., 2]))
-
-    # -- optional fused fast path (kernels/ucsv_pallas.py) -------------------
-    # Called by ops/batched_filter.py on TPU with a θ-stacked model (fields
-    # shaped (M,)) and the whole (M, N, 3) cloud: propagate + reweight as one
-    # VMEM-resident Pallas pass with on-chip PRNG.
-    def fused_propagate_reweight(self, seed, y, particles, tile_offset=0,
-                                 interpret: bool = False,
-                                 normalize: bool = False, carry_logw=None):
-        # Routed through the generic builder since round 4: bitwise-equal
-        # to the bespoke ``ucsv_pallas`` kernel ON HARDWARE at the same
-        # seed (same Box–Muller draw order) and measured faster — 0.919 vs
-        # 0.977 ms/call at 512×8192 — because the per-θ γ's ride as (M, 1)
-        # VMEM columns instead of (M, N) HBM broadcasts
-        # (benchmarks/bench_propagate_builder.py).
-        from ..kernels.propagate_pallas import fused_elementwise_step
-
-        x = particles[..., 0]
-        lse = particles[..., 1]
-        lsn = particles[..., 2]
-        m = x.shape[0]
-        ge = jnp.broadcast_to(self.gamma_eps, (m,))
-        gn = jnp.broadcast_to(self.gamma_eta, (m,))
-        out = fused_elementwise_step(
-            _ucsv_update, seed, y, (ge, gn), (x, lse, lsn), n_normals=3,
-            tile_offset=tile_offset, normalize=normalize, interpret=interpret,
-            carry_logw=carry_logw,
-        )
-        if normalize:
-            planes, log_norm, row_lse, ess = out
-            return (
-                jnp.stack(planes, axis=-1), log_norm, row_lse[:, 0], ess[:, 0]
-            )
-        planes, logw = out
-        return jnp.stack(planes, axis=-1), logw
-
-    @staticmethod
-    def fused_tiles(m: int) -> int:
-        """Grid tiles the fused kernel uses for an M-row block (TILE_M=8 when
-        divisible) — the sharded caller multiplies by its shard index to get
-        the global tile offset, keeping sharded PRNG streams distinct (and
-        bitwise-equal to the unsharded run when every shard is 8-divisible)."""
-        return m // 8 if m % 8 == 0 else 1
 
 
 def unobserved_components_stochastic_volatility(

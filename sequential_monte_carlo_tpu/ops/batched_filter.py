@@ -2,10 +2,9 @@
 
 The per-θ API in ``particle_filter.py`` is the reference semantics; this
 module is the performance layer the samplers actually call: the whole
-(M, N) particle tensor steps as one program, with the resample+gather stage
-routed to the fused Pallas kernel (``kernels/resample_pallas.py``) on TPU —
-measured ~40× faster than the XLA searchsorted+take path, which remains the
-fallback (CPU, multinomial scheme, or ``fused_resample="off"``).
+(M, N) particle tensor steps as one program — vmapped ``searchsorted`` +
+``take`` for resample+gather, vmapped ``transition_distribution(x).sample``
+for propagate — and XLA fuses each stage.
 
 RNG note: the batched path draws its resampling uniforms as one (M, N)
 tensor rather than M per-θ streams, so results differ bitwise from
@@ -18,12 +17,13 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ..kernels.resample_pallas import (
+from .particle_filter import PFConfig, pf_init
+from .resampling import (
+    get_resampler,
+    search_ancestors,
     stratified_uniforms,
     systematic_uniforms,
 )
-from .particle_filter import PFConfig, pf_init
-from .resampling import get_resampler
 
 __all__ = [
     "BatchedPFOut",
@@ -31,6 +31,7 @@ __all__ = [
     "batched_pf_step",
     "batched_log_likelihood_masked",
     "batched_log_likelihood",
+    "gather_ancestors",
 ]
 
 
@@ -39,51 +40,6 @@ class BatchedPFOut(NamedTuple):
     log_weights: jax.Array  # (M, N) normalized per row
     log_mean: jax.Array  # (M,) incremental evidence per θ
     ess: jax.Array  # (M,)
-
-
-def _mesh_info(config: PFConfig):
-    """(mesh, theta_sharded, particle_sharded) from ``config.mesh``."""
-    mesh = getattr(config, "mesh", None)
-    if mesh is None:
-        return None, False, False
-    from ..parallel.mesh import PARTICLE_AXIS, THETA_AXIS
-
-    names = mesh.axis_names
-    t = THETA_AXIS in names and mesh.shape[THETA_AXIS] > 1
-    p = PARTICLE_AXIS in names and mesh.shape[PARTICLE_AXIS] > 1
-    return mesh, t, p
-
-
-def _use_fused(config: PFConfig) -> bool:
-    mode = getattr(config, "fused_resample", "auto")
-    if mode == "off":
-        return False
-    if config.resampling not in ("systematic", "stratified", "residual_systematic"):
-        return False  # multinomial / residual(-multinomial) keep the XLA path
-    _, _, particle_sharded = _mesh_info(config)
-    if particle_sharded:
-        # a pallas_call has no partitioning rule along the particle dim —
-        # fall back to the XLA path, which GSPMD partitions correctly
-        # (cross-shard resampling rides parallel/collective.py semantics)
-        return False
-    if mode == "on":
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def _interpret_ctx():
-    """TPU-interpret-mode context off-TPU: lets the fused Pallas route
-    (incl. its shard_map composition and the on-chip-PRNG kernels) be
-    traced and executed on the virtual CPU mesh. The flag is consulted at
-    pallas_call trace time, so wrapping the call sites suffices even under
-    an outer jit."""
-    if jax.default_backend() == "tpu":
-        import contextlib
-
-        return contextlib.nullcontext()
-    from jax.experimental.pallas import tpu as pltpu
-
-    return pltpu.force_tpu_interpret_mode()
 
 
 def _row_normalize(logw, log_n=None):
@@ -149,78 +105,31 @@ def _elastic_sorted_u(k_res, config, m, n, active_n, dtype):
     """Sorted uniform grids over the LIVE prefix: u_i = (i + offset)/active_n,
     tail entries clamped just below 1 so every output stays covered (tail
     slots duplicate the last live ancestor; their weights are re-masked)."""
-    a_f = active_n.astype(dtype)
-    i = jnp.arange(n, dtype=dtype)[None, :]
     if config.resampling in ("systematic", "residual_systematic"):
-        off = jax.random.uniform(k_res, (m, 1), dtype=dtype)
+        make_u = systematic_uniforms
     else:  # stratified
-        off = jax.random.uniform(k_res, (m, n), dtype=dtype)
-    return jnp.minimum((i + off) / a_f, jnp.asarray(1.0 - 1e-7, dtype))
+        make_u = stratified_uniforms
+    u = make_u(k_res, m, n, dtype, count=active_n.astype(dtype))
+    return jnp.minimum(u, jnp.asarray(1.0 - 1e-7, dtype))
+
+
+def gather_ancestors(particles, ancestors):
+    """Row-wise gather: out[m, i] = particles[m, ancestors[m, i]]."""
+    return jax.vmap(lambda x, a: jnp.take(x, a, axis=0))(particles, ancestors)
 
 
 def _resample_gather(k_res, config, particles, w, active_n):
     """The resample+gather stage of :func:`batched_pf_step`: draw the
-    scheme's uniforms and gather every row's ancestors (fused Pallas
-    kernel / XLA fallback). Factored out so the adaptive-resampling path
-    can put the WHOLE stage under a ``lax.cond`` (VERDICT r4 #2)."""
+    scheme's uniforms and gather every row's ancestors. Factored out so
+    the adaptive-resampling path can put the WHOLE stage under a
+    ``lax.cond`` (VERDICT r4 #2)."""
     m, n, dx = particles.shape
-    if _use_fused(config):
-        u0 = None
-        if active_n is None:
-            if config.resampling in ("systematic", "residual_systematic"):
-                # systematic: hand the kernel only the (M, 1) offsets —
-                # the grid (i + u0)/N is generated in-kernel, bitwise
-                # equal to systematic_uniforms (PERF_NOTES.md round 3)
-                u0 = jax.random.uniform(k_res, (m, 1), dtype=w.dtype)
-                u = None
-            else:
-                u = stratified_uniforms(k_res, m, n, dtype=w.dtype)
-        else:
-            u = _elastic_sorted_u(k_res, config, m, n, active_n, w.dtype)
-        # monotone chunk-walk kernel: exact at any weight distribution,
-        # fastest at every size (1.4 vs 1.9 ms at N=1024, 9 vs 34 ms at
-        # N=8192 against the dense byte-plane kernel); falls back to
-        # the dense kernel itself for non-divisible shapes
-        from ..kernels.resample_walk import resample_gather_walk
-
-        if u0 is not None:
-            gather_fn = lambda u_, w_, xs_: resample_gather_walk(  # noqa: E731
-                None, w_, xs_, u0=u_
-            )
-            u_arg = u0
-        else:
-            gather_fn = resample_gather_walk
-            u_arg = u
-        mesh, theta_sharded, _ = _mesh_info(config)
-        xs_t = particles.transpose(0, 2, 1)
-        if theta_sharded:
-            # per-shard kernel inside shard_map: the uniforms are drawn
-            # globally above, so the sharded gather is bitwise-equal to
-            # the unsharded one (the kernel is deterministic in (u, w, x))
-            from jax.sharding import PartitionSpec as P
-
-            from ..parallel.mesh import THETA_AXIS
-
-            with _interpret_ctx():
-                return jax.shard_map(
-                    gather_fn,
-                    mesh=mesh,
-                    in_specs=(
-                        P(THETA_AXIS, None),
-                        P(THETA_AXIS, None),
-                        P(THETA_AXIS, None, None),
-                    ),
-                    out_specs=P(THETA_AXIS, None, None),
-                    check_vma=False,  # pallas_call can't annotate vma
-                )(u_arg, w, xs_t).transpose(0, 2, 1)
-        with _interpret_ctx():
-            return gather_fn(u_arg, w, xs_t).transpose(0, 2, 1)
     if active_n is None:
         keys = jax.random.split(k_res, m)
         anc = jax.vmap(
             lambda k, ww: get_resampler(config.resampling)(k, ww)
         )(keys, w)
-        return jax.vmap(lambda x, a: jnp.take(x, a, axis=0))(particles, anc)
+        return gather_ancestors(particles, anc)
     # elastic XLA path: uniforms over the live prefix + inverse CDF
     # (the masked tail has zero mass, so only live slots are drawn)
     if config.resampling == "multinomial":
@@ -229,26 +138,18 @@ def _resample_gather(k_res, config, particles, w, active_n):
         u = _elastic_sorted_u(k_res, config, m, n, active_n, w.dtype)
     cdf = jnp.cumsum(w, axis=-1)
     cdf = cdf / cdf[..., -1:]
-    anc = jax.vmap(
-        lambda c, uu: jnp.clip(
-            jnp.searchsorted(c, uu, side="left"), 0, n - 1
-        )
-    )(cdf, u)
-    return jax.vmap(lambda x, a: jnp.take(x, a, axis=0))(particles, anc)
+    return gather_ancestors(particles, jax.vmap(search_ancestors)(cdf, u))
 
 
-def _batched_apf_step(key, models, particles, log_w, y,
-                      config: PFConfig, fused_prep=None):
-    """Batched auxiliary particle filter step ≡ M× ``apf_step`` fused
+def _batched_apf_step(key, models, particles, log_w, y, config: PFConfig):
+    """Batched auxiliary particle filter step ≡ M× ``apf_step``
     (Pitt & Shephard 1999; VERDICT r4 #6's optional lookahead).
 
     First-stage λ-weights look ahead through the transition mean; the
-    resample-by-λ gather rides the SAME fused walk kernel as the
-    bootstrap route, with the per-ancestor lookahead density appended as
-    one extra component plane so it is gathered by the same ancestors in
-    the same kernel pass. Second stage propagates (fused kernel where the
-    model provides it) and applies the correction weights; the evidence
-    increment is the standard APF estimator."""
+    per-ancestor lookahead density is appended to the particles as one
+    extra component plane so the resample-by-λ gather moves both with the
+    same ancestors. Second stage propagates and applies the correction
+    weights; the evidence increment is the standard APF estimator."""
     m, n, dx = particles.shape
     k_res, k_prop = jax.random.split(key)
     log_n = jnp.log(jnp.asarray(float(n), dtype=log_w.dtype))
@@ -264,36 +165,21 @@ def _batched_apf_step(key, models, particles, log_w, y,
 
     with jax.named_scope("apf_resample"):
         # gather particles AND the lookahead density by the λ-ancestors in
-        # one kernel pass: ride log_g_mu as an extra component plane
+        # one pass: ride log_g_mu as an extra component plane
         aug = jnp.concatenate([particles, log_g_mu[..., None]], axis=-1)
         gathered = _resample_gather(k_res, config, aug, jnp.exp(lam_norm),
                                     None)
         xp = gathered[..., :dx]
         log_g_mu_a = gathered[..., dx]
 
-    _, theta_sharded, _ = _mesh_info(config)
-    fused_model = (
-        _use_fused(config)
-        and hasattr(models, "fused_propagate_reweight")
-        and not theta_sharded  # APF keeps the vmap route under θ-sharding
-    )
-    if fused_model:
-        with jax.named_scope("apf_propagate_reweight_fused"):
-            seed = jax.random.randint(k_prop, (), 0, jnp.iinfo(jnp.int32).max)
-            kw = {"prep": fused_prep} if fused_prep is not None else {}
-            with _interpret_ctx():
-                x_new, incr = models.fused_propagate_reweight(
-                    seed, y, xp, **kw
-                )
-    else:
-        with jax.named_scope("apf_propagate"):
-            keys_p = jax.random.split(k_prop, m)
-            x_new = jax.vmap(
-                lambda k, mod, x: mod.transition_distribution(x).sample(k)
-            )(keys_p, models, xp)
-            incr = jax.vmap(
-                lambda mod, x: mod.observation_distribution(x).log_prob(y)
-            )(models, x_new)
+    with jax.named_scope("apf_propagate"):
+        keys_p = jax.random.split(k_prop, m)
+        x_new = jax.vmap(
+            lambda k, mod, x: mod.transition_distribution(x).sample(k)
+        )(keys_p, models, xp)
+        incr = jax.vmap(
+            lambda mod, x: mod.observation_distribution(x).log_prob(y)
+        )(models, x_new)
 
     with jax.named_scope("apf_normalize"):
         corr = incr - log_g_mu_a
@@ -304,17 +190,11 @@ def _batched_apf_step(key, models, particles, log_w, y,
 
 
 def batched_pf_step(key, models, particles, log_w, y,
-                    config: PFConfig = PFConfig(), active_n=None,
-                    fused_prep=None):
-    """One filter step for all M clouds ≡ M× particles.jl:107-129 fused.
+                    config: PFConfig = PFConfig(), active_n=None):
+    """One filter step for all M clouds ≡ M× particles.jl:107-129.
 
     ``active_n``: see :func:`batched_pf_init` — padded-N elastic mode.
-    ``fused_prep``: step-invariant fused-kernel prep (``models.fused_prep()``)
-    computed once by scanning callers so per-step recomputation (e.g. the
-    LG family's batched eigh) stays out of the scan body (ADVICE r4).
-    ``config.proposal``: guided propagate+reweight (VERDICT r4 #6) — the
-    fused propagate kernel is bypassed; the fused resample kernel still
-    runs (it is proposal-independent).
+    ``config.proposal``: guided propagate+reweight (VERDICT r4 #6).
     ``config.algorithm == "apf"``: auxiliary-PF lookahead step
     (:func:`_batched_apf_step`); requires the fixed-N mode."""
     if config.algorithm not in ("bootstrap", "apf"):
@@ -341,8 +221,7 @@ def batched_pf_step(key, models, particles, log_w, y,
                 "ess_threshold < 1 composes with the bootstrap "
                 "algorithm only"
             )
-        return _batched_apf_step(key, models, particles, log_w, y, config,
-                                 fused_prep)
+        return _batched_apf_step(key, models, particles, log_w, y, config)
     m, n, dx = particles.shape
     proposal = config.proposal
     k_res, k_prop = jax.random.split(key)
@@ -367,9 +246,9 @@ def batched_pf_step(key, models, particles, log_w, y,
             # particles.jl:17-19,117 — DEVIATIONS.md §3). The whole
             # resample+gather stage sits under ONE lax.cond on "any row
             # fires": steps where no trigger fires skip the uniforms, the
-            # gather kernel, and the selects entirely (VERDICT r4 #2 — the
-            # old select formulation burned the full 6.2 ms walk kernel at
-            # flagship size and then discarded it). Rows that didn't fire
+            # gather, and the selects entirely (VERDICT r4 #2 — the old
+            # select formulation ran the full gather and then discarded
+            # it). Rows that didn't fire
             # keep their particles/weights via the per-row select inside
             # the live branch, so results are bitwise-identical to the
             # select formulation at every step.
@@ -389,115 +268,30 @@ def batched_pf_step(key, models, particles, log_w, y,
                 jnp.any(do), fire, lambda _: (particles, log_w), None
             )
 
-    fused_model = (
-        _use_fused(config)
-        and hasattr(models, "fused_propagate_reweight")
-        and proposal is None
-    )
-    # normalize-epilogue route: the kernel also runs the per-row
-    # log-sum-exp + ESS on its resident block, skipping the separate XLA
-    # normalize sweeps below. Valid without an elastic live-mask; in
-    # adaptive mode the carried (non-constant) pre-propagate weights ride
-    # into the kernel as a ``carry_logw`` plane and the epilogue
-    # normalizes lw + incr directly (VERDICT r4 #2).
-    fused_norm = fused_model and active_n is None
-    fused_carry = fused_norm and config.ess_threshold < 1.0
-    if fused_model:
-        with jax.named_scope("pf_propagate_reweight_fused"):
-            seed = jax.random.randint(k_prop, (), 0, jnp.iinfo(jnp.int32).max)
-            carry = lw if fused_carry else None
-            mesh, theta_sharded, _ = _mesh_info(config)
-            if theta_sharded:
-                from jax.sharding import PartitionSpec as P
+    with jax.named_scope("pf_propagate"):
+        keys_p = jax.random.split(k_prop, m)
+        if proposal is None:
+            x_new = jax.vmap(
+                lambda k, mod, x: mod.transition_distribution(x).sample(k)
+            )(keys_p, models, xp)
+            with jax.named_scope("pf_reweight"):
+                incr = jax.vmap(
+                    lambda mod, x: mod.observation_distribution(x).log_prob(y)
+                )(models, x_new)
+        else:
+            # guided: q(x_t | x_{t-1}) with the transition−proposal
+            # importance correction ≡ particles.jl:55-84, batched
+            def prop_one(k, mod, xp_):
+                q = proposal.step(mod, xp_)
+                xn = q.sample(k)
+                inc = (
+                    mod.observation_distribution(xn).log_prob(y)
+                    + mod.transition_distribution(xp_).log_prob(xn)
+                    - q.log_prob(xn)
+                )
+                return xn, inc
 
-                from ..parallel.mesh import THETA_AXIS
-
-                n_shards = mesh.shape[THETA_AXIS]
-                m_local = m // n_shards
-                tiles = type(models).fused_tiles(m_local)
-
-                def local_prop(models_l, xp_l, seed_, y_, *rest):
-                    # offset the kernel PRNG by the shard's global first-tile
-                    # index: streams stay distinct across shards and match
-                    # the unsharded run tile-for-tile when m_local % 8 == 0
-                    off = jax.lax.axis_index(THETA_AXIS) * tiles
-                    kw = {}
-                    if fused_carry:
-                        kw["carry_logw"] = rest[0]
-                        rest = rest[1:]
-                    if fused_prep is not None:
-                        kw["prep"] = rest[0]
-                    return models_l.fused_propagate_reweight(
-                        seed_, y_, xp_l, tile_offset=off,
-                        normalize=fused_norm, **kw,
-                    )
-
-                in_specs = [P(THETA_AXIS), P(THETA_AXIS, None, None), P(), P()]
-                operands = [models, xp, seed, jnp.asarray(y)]
-                if fused_carry:
-                    in_specs.append(P(THETA_AXIS, None))
-                    operands.append(carry)
-                if fused_prep is not None:
-                    in_specs.append(P(THETA_AXIS))
-                    operands.append(fused_prep)
-                norm_specs = (P(THETA_AXIS, None), P(THETA_AXIS), P(THETA_AXIS))
-                with _interpret_ctx():
-                    outs = jax.shard_map(
-                        local_prop,
-                        mesh=mesh,
-                        in_specs=tuple(in_specs),
-                        out_specs=(
-                            (P(THETA_AXIS, None, None),) + norm_specs
-                            if fused_norm
-                            else (P(THETA_AXIS, None, None), P(THETA_AXIS, None))
-                        ),
-                        check_vma=False,  # pallas_call can't annotate vma
-                    )(*operands)
-            else:
-                kw = {}
-                if fused_carry:
-                    kw["carry_logw"] = carry
-                if fused_prep is not None:
-                    kw["prep"] = fused_prep
-                with _interpret_ctx():
-                    outs = models.fused_propagate_reweight(
-                        seed, y, xp, normalize=fused_norm, **kw
-                    )
-            if fused_norm:
-                x_new, log_norm, row_lse, ess = outs
-                if fused_carry:
-                    # the carry is normalized (logsumexp(lw) == 0), so the
-                    # epilogue's lse of lw + incr IS the evidence increment
-                    return BatchedPFOut(x_new, log_norm, row_lse, ess)
-                # log_n from the resample scope (fused_norm ⇒ active_n is
-                # None ⇒ it is the constant log N)
-                return BatchedPFOut(x_new, log_norm, row_lse - log_n, ess)
-            x_new, incr = outs
-    else:
-        with jax.named_scope("pf_propagate"):
-            keys_p = jax.random.split(k_prop, m)
-            if proposal is None:
-                x_new = jax.vmap(
-                    lambda k, mod, x: mod.transition_distribution(x).sample(k)
-                )(keys_p, models, xp)
-                with jax.named_scope("pf_reweight"):
-                    incr = jax.vmap(
-                        lambda mod, x: mod.observation_distribution(x).log_prob(y)
-                    )(models, x_new)
-            else:
-                # guided: q(x_t | x_{t-1}) with the transition−proposal
-                # importance correction ≡ particles.jl:55-84, batched
-                def prop_one(k, mod, xp_):
-                    q = proposal.step(mod, xp_)
-                    xn = q.sample(k)
-                    inc = (
-                        mod.observation_distribution(xn).log_prob(y)
-                        + mod.transition_distribution(xp_).log_prob(xn)
-                        - q.log_prob(xn)
-                    )
-                    return xn, inc
-
-                x_new, incr = jax.vmap(prop_one)(keys_p, models, xp)
+            x_new, incr = jax.vmap(prop_one)(keys_p, models, xp)
 
     with jax.named_scope("pf_normalize"):
         if active_n is not None:
@@ -516,18 +310,6 @@ def batched_log_likelihood_masked(key, models, n, m, y, mask,
     k0, k_scan = jax.random.split(key)
     init = batched_pf_init(k0, models, n, m, y[0], active_n, config)
 
-    # Step-invariant fused-kernel prep (e.g. the LG family's batched eigh
-    # factor of Q) computed ONCE here, outside the scan, instead of per
-    # step inside the scan body (ADVICE r4).
-    prep = None
-    if (
-        _use_fused(config)
-        and config.proposal is None
-        and hasattr(models, "fused_propagate_reweight")
-        and hasattr(models, "fused_prep")
-    ):
-        prep = models.fused_prep()
-
     # The mask is shared across the whole batch, so the skip is a lax.cond
     # at the top of the scan body: masked-off steps execute NOTHING (unlike
     # a select formulation, which would burn the full step). Rejuvenation
@@ -539,7 +321,7 @@ def batched_log_likelihood_masked(key, models, n, m, y, mask,
         def live(c):
             particles, log_w, acc = c
             out = batched_pf_step(
-                k, models, particles, log_w, yt, config, active_n, prep
+                k, models, particles, log_w, yt, config, active_n
             )
             return (out.particles, out.log_weights, acc + out.log_mean)
 

@@ -9,7 +9,7 @@ Markov kernel on trajectory space that leaves p(x_{1:T} | y_{1:T}, θ)
 invariant for ANY number of particles N ≥ 2, which is what makes
 particle Gibbs (``samplers/particle_gibbs.py``) a valid θ+x sampler.
 
-TPU-first shape: the conditional forward pass is one ``lax.scan`` over T,
+Array-first shape: the conditional forward pass is one ``lax.scan`` over T,
 fully vectorized over the N-cloud (no per-particle loops); pinning the
 reference trajectory into slot 0 is a static ``.at[0].set`` — no dynamic
 shapes, no data-dependent control flow. Path extraction is either

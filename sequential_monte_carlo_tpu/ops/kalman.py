@@ -4,7 +4,7 @@
 specialization (:29-53) and a multivariate-state / univariate-observation one
 (:3-27); here a single ``lax.scan`` over T covers both (dx is a static shape,
 and the univariate observation makes every "inversion" a scalar divide — no
-linear solves, so the whole filter is a handful of VPU ops per step).
+linear solves, so the whole filter is a handful of elementwise ops per step).
 
 Per step (predict / update / likelihood, kalman_filter.jl:10-26):
 

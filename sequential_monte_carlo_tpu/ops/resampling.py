@@ -4,11 +4,10 @@ The reference has *only* multinomial resampling via StatsBase
 (``sample(1:N, Weights(w), N)``, /root/reference/src/particles.jl:17-19) and
 resamples unconditionally every filter step. Here each scheme is a pure
 function ``(key, weights, n) -> ancestors`` built from a cumulative sum plus a
-vectorized ``searchsorted`` — no sequential O(N) loop, so the whole thing maps
-onto the VPU and XLA fuses it with the surrounding gather. Systematic /
-stratified (Kitagawa) are the TPU-preferred schemes (single sorted-uniform
-grid ⇒ monotone searchsorted); multinomial is kept for behavioral parity with
-the reference.
+vectorized ``searchsorted`` — no sequential O(N) loop, so XLA fuses it with
+the surrounding gather. Systematic / stratified (Kitagawa) are the default
+schemes (single sorted-uniform grid ⇒ monotone searchsorted); multinomial is
+kept for behavioral parity with the reference.
 
 All schemes are unbiased: E[#offspring of particle i] = n·w_i.
 """
@@ -25,19 +24,29 @@ __all__ = [
     "stratified",
     "residual",
     "residual_systematic",
+    "search_ancestors",
+    "systematic_uniforms",
+    "stratified_uniforms",
     "get_resampler",
     "resample",
 ]
 
 
+def search_ancestors(cdf: jax.Array, u: jax.Array) -> jax.Array:
+    """Ancestor indices of uniforms ``u`` under a normalized 1-D CDF: the
+    first i with cdf[i] >= u, clipped to the last index. searchsorted
+    vectorizes to a fixed log2(N)-step binary search."""
+    idx = jnp.searchsorted(cdf, u, side="left")
+    return jnp.clip(idx, 0, cdf.shape[-1] - 1).astype(jnp.int32)
+
+
 def _inverse_cdf(u: jax.Array, weights: jax.Array) -> jax.Array:
     """Map sorted-or-not uniforms u ∈ [0,1) to ancestor indices via the
-    weight CDF. searchsorted vectorizes to a fixed log2(N)-step binary search."""
+    weight CDF."""
     cdf = jnp.cumsum(weights, axis=-1)
     # guard rounding: force the last CDF entry to cover u→1
     cdf = cdf / cdf[..., -1:]
-    idx = jnp.searchsorted(cdf, u, side="left")
-    return jnp.clip(idx, 0, weights.shape[-1] - 1).astype(jnp.int32)
+    return search_ancestors(cdf, u)
 
 
 def multinomial(key, weights, n=None):
@@ -51,7 +60,7 @@ def systematic(key, weights, n=None):
     """Single uniform offset, stride-1/n grid: u_i = (i + u0)/n.
 
     Lowest-variance O(N) scheme; the grid is already sorted so the
-    searchsorted is monotone (TPU-friendly memory access).
+    searchsorted is monotone.
     """
     n = n or weights.shape[-1]
     u0 = jax.random.uniform(key, (), dtype=weights.dtype)
@@ -65,6 +74,23 @@ def stratified(key, weights, n=None):
     v = jax.random.uniform(key, (n,), dtype=weights.dtype)
     u = (jnp.arange(n, dtype=weights.dtype) + v) / n
     return _inverse_cdf(u, weights)
+
+
+def systematic_uniforms(key, m, n, dtype=jnp.float32, count=None):
+    """Per-row systematic grids u_i = (i + u0)/count (one u0 per row),
+    (m, n). ``count`` (default n; may be traced) is the number of strata,
+    so entries i ≥ count fall at or beyond 1."""
+    u0 = jax.random.uniform(key, (m, 1), dtype=dtype)
+    i = jnp.arange(n, dtype=dtype)[None, :]
+    return (i + u0) / (n if count is None else count)
+
+
+def stratified_uniforms(key, m, n, dtype=jnp.float32, count=None):
+    """Per-row stratified grids u_i = (i + v_i)/count, (m, n); ``count`` as
+    in :func:`systematic_uniforms`."""
+    v = jax.random.uniform(key, (m, n), dtype=dtype)
+    i = jnp.arange(n, dtype=dtype)[None, :]
+    return (i + v) / (n if count is None else count)
 
 
 def _counts_to_ancestors(counts, n):

@@ -20,7 +20,7 @@ Two implementations, one exact oracle + one generic:
       W_{t|T}^i ∝ w_t^i · Σ_j f(x_{t+1}^j | x_t^i) · W_{t+1|T}^j
                               / Σ_k w_t^k f(x_{t+1}^j | x_t^k)
 
-  over the (N, N) pairwise transition-density matrix. TPU-first shape:
+  over the (N, N) pairwise transition-density matrix. Array-first shape:
   the O(N²) inner sums are two dense log-sum-exp reductions over an
   (N, N) tile per step inside one ``lax.scan`` (no data-dependent
   control flow, no per-particle loops); everything stays f32 in log

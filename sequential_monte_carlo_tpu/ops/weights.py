@@ -9,7 +9,7 @@ returning
   * ``w``         = normalized linear weights,
   * ``ess``       = 1 / Σ w²  (absolute, in [1, N]).
 
-Everything is a pure reduction — on TPU these fuse into the surrounding
+Everything is a pure reduction — XLA fuses these into the surrounding
 propagate/reweight kernel. An ``axis_name`` variant performs the same
 reduction across a sharded particle axis with ``psum``/``pmax`` collectives,
 replacing the reference's single-process assumption (SURVEY.md §5.8).

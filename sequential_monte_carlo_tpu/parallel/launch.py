@@ -3,7 +3,7 @@
 The reference's entire parallelism story is single-process
 ``Threads.@threads`` over the M θ-particles
 (/root/reference/src/smc_samplers.jl:112,174,223; /root/reference/src/ibis.jl:95).
-The TPU-native replacement at the *host* level (SURVEY.md §5.8, §7.6): each
+The replacement at the *host* level (SURVEY.md §5.8, §7.6): each
 process owns one host's chips, ``jax.distributed`` wires the processes into
 one global device set, and the (theta, particle) mesh spans them —
 θ-particles shard across hosts over DCN, each θ's inner particle cloud stays
@@ -16,7 +16,7 @@ Typical SLURM/GCE launch (same program on every host)::
     from sequential_monte_carlo_tpu.parallel import (
         initialize_distributed, make_global_mesh, ShardedSMC2)
 
-    initialize_distributed()          # env-driven on TPU pods / SLURM
+    initialize_distributed()          # env-driven on SLURM clusters
     mesh = make_global_mesh()         # θ across hosts, particles within
     sharded = ShardedSMC2(SMC2(model_fn, prior, cfg), mesh)
     state = sharded.init(jax.random.key(0), y)   # y replicated on all hosts
@@ -53,7 +53,7 @@ def initialize_distributed(
 ) -> None:
     """``jax.distributed.initialize`` with env-var fallbacks.
 
-    On TPU pods and SLURM clusters all arguments auto-detect (pass nothing).
+    On SLURM clusters all arguments auto-detect (pass nothing).
     For manual/CPU launches set the standard env vars or pass explicitly:
     ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``.
     Safe to call once per process, before any other jax API touches devices.

@@ -1,8 +1,8 @@
-"""Device meshes for SMC (L-1 in the TPU layer map, SURVEY.md §1).
+"""Device meshes for SMC (L-1 in the layer map, SURVEY.md §1).
 
 The reference's entire parallelism story is ``Threads.@threads`` over the M
 θ-particles (smc_samplers.jl:112,174,223; ibis.jl:95 — SURVEY.md §2
-parallelism inventory). The TPU-native replacement is a 2-D mesh:
+parallelism inventory). The replacement is a 2-D device mesh:
 
   * axis ``"theta"``    — θ-particles sharded across hosts/chips (DCN/ICI);
     embarrassingly parallel except θ-resampling and the global ESS, which

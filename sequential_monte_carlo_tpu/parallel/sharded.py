@@ -37,14 +37,6 @@ class ShardedSMC2:
 
     def __init__(self, sampler: SMC2, mesh=None):
         self.mesh = mesh if mesh is not None else make_mesh()
-        # rebuild the sampler with the mesh recorded in the inner-PF config:
-        # the fused Pallas route (ops/batched_filter.py) reads it to run its
-        # kernels per-shard inside shard_map (θ-sharding) or to fall back to
-        # the GSPMD-partitionable XLA path (particle-sharding)
-        cfg = sampler.config
-        if getattr(cfg.inner, "mesh", None) is not self.mesh:
-            cfg = cfg._replace(inner=cfg.inner._replace(mesh=self.mesh))
-            sampler = SMC2(sampler.model_fn, sampler.prior, cfg)
         self.sampler = sampler
         self.shardings = smc2_state_shardings(self.mesh)
         repl = NamedSharding(self.mesh, P())

@@ -6,7 +6,7 @@ state is a (mean, cov) pair instead of a particle cloud; rejuvenation
 re-runs the exact ``log_likelihood(y, model)`` (ibis.jl:100); there is no
 exchange step (no N to double). Only valid for linear-Gaussian models.
 
-TPU shape: the M Kalman filters are one ``vmap`` bank — per step a handful
+Array shape: the M Kalman filters are one ``vmap`` bank — per step a handful
 of (dx,dx) matmuls batched over M; rejuvenation is a ``lax.scan`` over
 ``chain`` of one batched masked Kalman sweep over (M, T).
 """

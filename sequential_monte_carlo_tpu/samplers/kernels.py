@@ -9,7 +9,7 @@ scaled empirical-covariance RW proposal from the current θ-cloud with
   * per-chain-step annealing factors 0.5·reverse(1:chain) multiplying the
     proposal *covariance* (smc_samplers.jl:109,114).
 
-The TPU formulation precomputes one Cholesky factor of the kernel covariance
+The batched formulation precomputes one Cholesky factor of the kernel covariance
 and draws all M proposals as a single (M,dθ)@(dθ,dθ) matmul.
 """
 from __future__ import annotations

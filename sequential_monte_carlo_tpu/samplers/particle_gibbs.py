@@ -17,7 +17,7 @@ so θ moves cost O(T) instead of O(N·T). The complete-data density
 log p(θ) + log μ_θ(x_1) + Σ log f_θ(x_t|x_{t-1}) + Σ log g_θ(y_t|x_t)
 is three vectorized ``log_prob`` sweeps over the stored path.
 
-TPU-first: the whole chain is ONE ``lax.scan`` over sweeps (static
+Array-first: the whole chain is ONE ``lax.scan`` over sweeps (static
 shapes; the CSMC forward pass and the MH chain are nested scans), so a
 full PG run is a single compiled program with per-sweep θ draws returned
 as arrays — no Python-loop MCMC.

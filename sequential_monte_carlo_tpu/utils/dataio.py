@@ -1,79 +1,17 @@
-"""ctypes bindings for the native CSV loader (csrc/dataio.cpp), with a
-pure-Python fallback. The reference's data path is an HTTP FRED client
-(examples/inflation_example.jl:12-23); the framework's is a local mmap
-column reader returning contiguous float64 buffers."""
+"""Local CSV column reader. The reference's data path is an HTTP FRED client
+(examples/inflation_example.jl:12-23); the framework's reads a vendored CSV
+into a contiguous float64 buffer."""
 from __future__ import annotations
 
-import ctypes
 import csv as _csv
-import os
 
 import numpy as np
 
-_LIB = None
-_LIB_TRIED = False
-
-
-def _lib():
-    global _LIB, _LIB_TRIED
-    if _LIB_TRIED:
-        return _LIB
-    _LIB_TRIED = True
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    path = os.path.join(root, "csrc", "libsmcdataio.so")
-    if not os.path.exists(path):
-        # attempt a one-shot build if the toolchain is present
-        import subprocess
-
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.join(root, "csrc")],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            return None
-    try:
-        lib = ctypes.CDLL(path)
-        lib.smc_csv_dims.argtypes = [
-            ctypes.c_char_p,
-            ctypes.c_char,
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-        ]
-        lib.smc_csv_dims.restype = ctypes.c_int
-        lib.smc_csv_read_column.argtypes = [
-            ctypes.c_char_p,
-            ctypes.c_char,
-            ctypes.c_int64,
-            np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS"),
-            ctypes.c_int64,
-        ]
-        lib.smc_csv_read_column.restype = ctypes.c_int
-        _LIB = lib
-    except OSError:
-        _LIB = None
-    return _LIB
-
 
 def read_csv_column(path: str, col: int, delim: str = ",") -> np.ndarray:
-    """Read one numeric column (0-indexed, header skipped) as float64."""
-    lib = _lib()
-    if lib is not None:
-        n_rows = ctypes.c_int64()
-        n_cols = ctypes.c_int64()
-        rc = lib.smc_csv_dims(
-            path.encode(), delim.encode(), ctypes.byref(n_rows), ctypes.byref(n_cols)
-        )
-        if rc == 0 and 0 <= col < n_cols.value:
-            out = np.empty(n_rows.value, dtype=np.float64)
-            rc = lib.smc_csv_read_column(
-                path.encode(), delim.encode(), col, out, n_rows.value
-            )
-            if rc == 0:
-                return out
-    # fallback: python csv
+    """Read one numeric column (0-indexed, header skipped) as float64.
+
+    Blank lines are skipped; a non-numeric or missing cell reads as NaN."""
     vals = []
     with open(path) as f:
         reader = _csv.reader(f, delimiter=delim)
@@ -86,7 +24,3 @@ def read_csv_column(path: str, col: int, delim: str = ",") -> np.ndarray:
             except (ValueError, IndexError):
                 vals.append(float("nan"))
     return np.asarray(vals, dtype=np.float64)
-
-
-def native_loader_available() -> bool:
-    return _lib() is not None

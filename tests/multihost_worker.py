@@ -3,7 +3,7 @@
 Launched twice by tests/test_multihost.py against a localhost coordinator:
 each process owns 4 virtual CPU devices; the global mesh is (theta=8,
 particle=1) spanning both processes — the CPU-backend stand-in for a 2-host
-TPU slice. Runs ShardedSMC2 end-to-end and prints a JSON line of posterior
+deployment. Runs ShardedSMC2 end-to-end and prints a JSON line of posterior
 statistics; the parent asserts both processes agree.
 
 Usage: python multihost_worker.py <coordinator_addr> <process_id> <n_proc>

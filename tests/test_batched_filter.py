@@ -1,22 +1,25 @@
-"""L2.5 batched filter + L5 Pallas resample kernel (interpret mode on CPU)."""
+"""L2.5 batched filter: the XLA resample+gather and propagate stages."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import sequential_monte_carlo_tpu as smc
-from sequential_monte_carlo_tpu.kernels.resample_pallas import (
-    resample_gather,
-    stratified_uniforms,
-    systematic_uniforms,
-)
 from sequential_monte_carlo_tpu.ops.batched_filter import (
+    _elastic_sorted_u,
+    _resample_gather,
     batched_log_likelihood,
     batched_log_likelihood_masked,
     batched_pf_init,
     batched_pf_step,
+    gather_ancestors,
 )
-from sequential_monte_carlo_tpu.ops.resampling import _inverse_cdf
+from sequential_monte_carlo_tpu.ops.resampling import (
+    get_resampler,
+    search_ancestors,
+    stratified_uniforms,
+    systematic_uniforms,
+)
 
 
 @pytest.fixture(scope="module")
@@ -70,424 +73,6 @@ def test_batched_adaptive_resampling(setup):
     assert np.abs(np.asarray(logz - kz)).max() < 3.0
 
 
-# ---- Pallas kernel (interpret mode) ----------------------------------------
-
-@pytest.mark.parametrize("make_u", [systematic_uniforms, stratified_uniforms])
-def test_resample_gather_bitwise(make_u):
-    M, N, C = 4, 256, 3
-    key = jax.random.key(0)
-    w = jax.nn.softmax(jax.random.normal(key, (M, N)) * 2)
-    xs = jax.random.normal(jax.random.key(1), (M, C, N))
-    u = make_u(jax.random.key(2), M, N)
-    out = resample_gather(u, w, xs, interpret=True)
-    anc = jax.vmap(lambda uu, ww: _inverse_cdf(uu, ww))(u, w)
-    ref = jax.vmap(lambda x, a: x[:, a])(xs, anc)
-    assert bool(jnp.all(out == ref))
-
-
-def test_resample_gather_degenerate_weight():
-    """Point-mass weights: every output particle is the heavy one."""
-    M, N, C = 2, 256, 2
-    w = jnp.zeros((M, N)).at[:, 17].set(1.0)
-    xs = jax.random.normal(jax.random.key(1), (M, C, N))
-    u = systematic_uniforms(jax.random.key(2), M, N)
-    out = resample_gather(u, w, xs, interpret=True)
-    expect = jnp.broadcast_to(xs[:, :, 17:18], (M, C, N))
-    assert bool(jnp.all(out == expect))
-
-
-def test_resample_gather_uniform_weights_identity_counts():
-    """Uniform weights + systematic grid ⇒ every particle exactly once."""
-    M, N, C = 2, 128, 1
-    w = jnp.full((M, N), 1.0 / N)
-    xs = jnp.broadcast_to(
-        jnp.arange(N, dtype=jnp.float32)[None, None, :], (M, C, N)
-    )
-    u = systematic_uniforms(jax.random.key(0), M, N)
-    out = resample_gather(u, w, xs, interpret=True)
-    # ancestors are 0..N-1 in order
-    np.testing.assert_array_equal(
-        np.asarray(out[0, 0]), np.arange(N, dtype=np.float32)
-    )
-
-
-def test_resample_gather_c_padding():
-    """C not a multiple of 8 pads internally and unpads on return."""
-    M, N, C = 2, 128, 5
-    w = jax.nn.softmax(jax.random.normal(jax.random.key(0), (M, N)))
-    xs = jax.random.normal(jax.random.key(1), (M, C, N))
-    u = systematic_uniforms(jax.random.key(2), M, N)
-    out = resample_gather(u, w, xs, interpret=True)
-    assert out.shape == (M, C, N)
-
-
-def test_fused_config_off_on_cpu_matches_statistics(setup):
-    """'off' (XLA path) and 'on' (interpret Pallas) agree statistically."""
-    models, y, M = setup
-    cfg_off = smc.PFConfig("systematic", 1.0, "off")
-    _, _, z_off = batched_log_likelihood(jax.random.key(5), models, 256, M, y, cfg_off)
-    kz = jax.vmap(lambda m: smc.kalman_log_likelihood(m, y)[1])(models)
-    assert np.abs(np.asarray(z_off - kz)).max() < 3.0
-
-
-@pytest.mark.parametrize("concentration", [0.0, 2.0, 8.0])
-def test_resample_gather_walk_bitwise(concentration):
-    """Chunk-walk kernel ≡ searchsorted+take at any weight concentration."""
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        resample_gather_walk,
-    )
-    from jax.experimental.pallas import tpu as pltpu
-
-    M, N, C = 32, 2048, 3
-    w = jax.nn.softmax(
-        jax.random.normal(jax.random.key(0), (M, N)) * concentration
-    )
-    xs = jax.random.normal(jax.random.key(1), (M, C, N))
-    u = systematic_uniforms(jax.random.key(2), M, N)
-    anc = jax.vmap(lambda uu, ww: _inverse_cdf(uu, ww))(u, w)
-    ref = jax.vmap(lambda x, a: x[:, a])(xs, anc)
-    with pltpu.force_tpu_interpret_mode():
-        # (tm=16, n_sub=2) exercises the per-subgroup chunk-bounds
-        # ablation (bitwise-equal, measured slower — PERF_NOTES r4);
-        # (tm=16/2, n_sub=1) the production union-bounds path
-        for tm, n_sub in ((16, 1), (16, 2), (2, 1)):
-            out = resample_gather_walk(u, w, xs, tm=tm, n_sub=n_sub)
-            assert bool(jnp.all(out == ref)), (tm, n_sub)
-
-
-
-def test_walk_kernel_tm_autotune():
-    """The VMEM-model autotune reproduces every measured fit/OOM point and
-    downshifts for non-power-of-two sizes (ADVICE r3 #1)."""
-    from sequential_monte_carlo_tpu.kernels.resample_walk import _autotune_tm
-
-    assert _autotune_tm(3, 1024) == 32  # round-4 sweep winner at small N
-    assert _autotune_tm(3, 2048) == 32
-    assert _autotune_tm(3, 8192) == 16  # measured to fit (c_pad=4)
-    assert _autotune_tm(8, 8192) == 8  # measured Mosaic OOM at tm=16
-    assert _autotune_tm(3, 12288) == 8  # non-power-of-two N downshifts
-    assert _autotune_tm(12, 8192) == 8  # c_pad=12 downshifts
-    assert _autotune_tm(3, 16384) == 8
-    # count route (round 5): tm=16 measured fastest at EVERY size
-    assert _autotune_tm(3, 1024, has_u=False) == 16
-    assert _autotune_tm(3, 8192, has_u=False) == 16
-    assert _autotune_tm(8, 8192, has_u=False) == 8  # VMEM downshift holds
-
-
-def test_resample_gather_walk_u0_route_bitwise():
-    """The (M, 1)-offset route (the one the samplers dispatch for
-    systematic resampling) is the gen-6 COUNT formulation since round 5:
-    bitwise ≡ its closed-form ceil-count ancestor oracle, at any weight
-    concentration. ``formulation="band"`` keeps the gen-4 route ≡ the
-    materialized grid ≡ the searchsorted+take oracle. NB: interpret mode
-    cannot certify Mosaic lowering — round 3 shipped a float-iota that
-    was interpret-green and failed hardware compilation (round 5 re-hit
-    it in the count kernel); `benchmarks/validate_tpu.py` repeats both
-    checks on the chip."""
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        count_ancestors,
-        resample_gather_walk,
-    )
-    from jax.experimental.pallas import tpu as pltpu
-
-    M, N, C = 32, 2048, 3
-    for conc in (0.0, 2.0, 8.0):
-        w = jax.nn.softmax(
-            jax.random.normal(jax.random.key(0), (M, N)) * conc
-        )
-        xs = jax.random.normal(jax.random.key(1), (M, C, N))
-        u0 = jax.random.uniform(jax.random.key(2), (M, 1))
-        u = (jnp.arange(N, dtype=jnp.float32)[None, :] + u0) / N
-        with pltpu.force_tpu_interpret_mode():
-            out_cnt = resample_gather_walk(None, w, xs, tm=16, u0=u0)
-            out_cnt2 = resample_gather_walk(None, w, xs, tm=2, u0=u0)
-            out_band = resample_gather_walk(None, w, xs, tm=2, u0=u0,
-                                            formulation="band")
-            out_u = resample_gather_walk(u, w, xs, tm=2)
-        anc_cnt = count_ancestors(u0, w)
-        ref_cnt = jax.vmap(lambda x, a: x[:, a])(xs, anc_cnt)
-        assert bool(jnp.all(out_cnt == ref_cnt)), conc
-        assert bool(jnp.all(out_cnt2 == ref_cnt)), conc
-        anc = jax.vmap(lambda uu, ww: _inverse_cdf(uu, ww))(u, w)
-        ref = jax.vmap(lambda x, a: x[:, a])(xs, anc)
-        assert bool(jnp.all(out_band == out_u)), conc
-        assert bool(jnp.all(out_band == ref)), conc
-
-
-def test_count_walk_ancestors_match_searchsorted_statistics():
-    """The count formulation's ancestors agree with searchsorted-left
-    everywhere except f32 rounding ties (expected: zero or a handful of
-    positions out of M·N) — both exact systematic draws."""
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        count_ancestors,
-    )
-
-    M, N = 16, 4096
-    w = jax.nn.softmax(jax.random.normal(jax.random.key(0), (M, N)) * 2)
-    u0 = jax.random.uniform(jax.random.key(1), (M, 1))
-    anc_cnt = count_ancestors(u0, w)
-    u = (jnp.arange(N, dtype=jnp.float32)[None, :] + u0) / N
-    anc_ss = jax.vmap(lambda uu, ww: _inverse_cdf(uu, ww))(u, w)
-    frac = float(jnp.mean((anc_cnt != anc_ss).astype(jnp.float32)))
-    assert frac < 1e-3, frac
-
-
-def test_resample_gather_walk_degenerate_weight():
-    """Point-mass weights: the walk needs no fallback (bounded work)."""
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        resample_gather_walk,
-    )
-    from jax.experimental.pallas import tpu as pltpu
-
-    M, N, C = 2, 1024, 2
-    w = jnp.zeros((M, N)).at[:, 900].set(1.0)
-    xs = jax.random.normal(jax.random.key(1), (M, C, N))
-    u = systematic_uniforms(jax.random.key(2), M, N)
-    with pltpu.force_tpu_interpret_mode():
-        out = resample_gather_walk(u, w, xs, tm=2)
-    expect = jnp.broadcast_to(xs[:, :, 900:901], (M, C, N))
-    assert bool(jnp.all(out == expect))
-
-
-def test_resample_gather_walk_non_divisible_falls_back():
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        resample_gather_walk,
-    )
-    from jax.experimental.pallas import tpu as pltpu
-
-    M, N, C = 3, 384, 2  # M % tm and N % cw both awkward → dense fallback
-    w = jax.nn.softmax(jax.random.normal(jax.random.key(0), (M, N)))
-    xs = jax.random.normal(jax.random.key(1), (M, C, N))
-    u = systematic_uniforms(jax.random.key(2), M, N)
-    with pltpu.force_tpu_interpret_mode():
-        out = resample_gather_walk(u, w, xs)
-    anc = jax.vmap(lambda uu, ww: _inverse_cdf(uu, ww))(u, w)
-    ref = jax.vmap(lambda x, a: x[:, a])(xs, anc)
-    assert bool(jnp.all(out == ref))
-
-
-# ---- fused UC-SV propagate+reweight kernel (interpret mode) ----------------
-# (The whole-step walk+propagate mega-kernel was deleted in round 3: it lost
-# to this two-kernel route at every measured size — PERF_NOTES.md.)
-
-def _ucsv_prop_setup(M=2, N=1024, gamma=(0.0, 0.0), seed=7):
-    from jax.experimental.pallas import tpu as pltpu
-
-    from sequential_monte_carlo_tpu.kernels.ucsv_pallas import (
-        ucsv_propagate_reweight,
-    )
-
-    planar = jax.random.normal(
-        jax.random.key(1), (M, 3, N)
-    ).astype(jnp.float32)
-    ge = jnp.full((M,), gamma[0], jnp.float32)
-    gn = jnp.full((M,), gamma[1], jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        x, lse, lsn, logw = ucsv_propagate_reweight(
-            seed, 1.3, ge, gn, planar[:, 0], planar[:, 1], planar[:, 2]
-        )
-    return planar, x, lse, lsn, logw
-
-
-def test_ucsv_propagate_gamma_zero_freezes_vols():
-    """γ=0 makes both log-vol random walks degenerate: the returned lse/lsn
-    must be bitwise the inputs, independent of the PRNG draws."""
-    planar, x, lse, lsn, _ = _ucsv_prop_setup(gamma=(0.0, 0.0))
-    assert bool(jnp.all(lse == planar[:, 1]))
-    assert bool(jnp.all(lsn == planar[:, 2]))
-
-
-def test_ucsv_propagate_logw_consistent():
-    """logw must equal the N(x', exp(½ logσn'))-density of y at the
-    returned state — deterministic given the outputs."""
-    import math
-
-    _, x, _, lsn, logw = _ucsv_prop_setup(gamma=(0.3, 0.2))
-    zz = (1.3 - x) * jnp.exp(-0.5 * lsn)
-    expect = -0.5 * zz * zz - 0.5 * lsn - 0.5 * math.log(2 * math.pi)
-    np.testing.assert_allclose(np.asarray(logw), np.asarray(expect),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_ucsv_propagate_normalize_epilogue_consistent():
-    """normalize=True ≡ normalize=False + the XLA row normalize (same
-    seed → identical draws; the epilogue runs on the resident block)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from sequential_monte_carlo_tpu.kernels.ucsv_pallas import (
-        ucsv_propagate_reweight,
-    )
-
-    M, N = 8, 512
-    planar = jax.random.normal(jax.random.key(2), (M, 3, N)).astype(jnp.float32)
-    ge = jnp.full((M,), 0.3, jnp.float32)
-    gn = jnp.full((M,), 0.2, jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        x0, lse0, lsn0, logw = ucsv_propagate_reweight(
-            7, 1.3, ge, gn, planar[:, 0], planar[:, 1], planar[:, 2]
-        )
-        x1, lse1, lsn1, log_norm, row_lse, ess = ucsv_propagate_reweight(
-            7, 1.3, ge, gn, planar[:, 0], planar[:, 1], planar[:, 2],
-            normalize=True,
-        )
-    assert bool(jnp.all(x0 == x1)) and bool(jnp.all(lsn0 == lsn1))
-    lse_ref = jax.scipy.special.logsumexp(logw, axis=-1, keepdims=True)
-    np.testing.assert_allclose(
-        np.asarray(log_norm), np.asarray(logw - lse_ref), rtol=1e-5, atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(row_lse), np.asarray(lse_ref), rtol=1e-5, atol=1e-5
-    )
-    w = jnp.exp(logw - lse_ref)
-    np.testing.assert_allclose(
-        np.asarray(ess[:, 0]), np.asarray(1.0 / jnp.sum(w * w, axis=-1)),
-        rtol=1e-4,
-    )
-    # normalized rows sum to 1
-    np.testing.assert_allclose(
-        np.asarray(jnp.exp(log_norm).sum(-1)), np.ones(M), rtol=1e-5
-    )
-
-
-def test_batched_step_fused_adaptive_keeps_xla_normalize(setup):
-    """With ess_threshold < 1 the fused route now keeps the normalize
-    epilogue by feeding the carried (non-constant) pre-propagate weights
-    into the kernel as a ``carry_logw`` plane (VERDICT r4 #2; round 4
-    gated the epilogue off here). Weights stay normalized and the
-    evidence is finite either way."""
-    models_lg, y, M = setup
-    thetas = jnp.stack([jnp.asarray([0.3, 2.0, -0.5, -0.5])] * M)
-    models = jax.vmap(smc.ucsv_model)(thetas)
-    cfg = smc.PFConfig("systematic", 0.5, "on")
-    init = batched_pf_init(jax.random.key(0), models, 128, M, y[0])
-    out = batched_pf_step(
-        jax.random.key(1), models, init.particles, init.log_weights,
-        y[1], cfg,
-    )
-    lw = np.asarray(out.log_weights)
-    np.testing.assert_allclose(np.exp(lw).sum(-1), np.ones(M), rtol=1e-4)
-    assert np.isfinite(np.asarray(out.log_mean)).all()
-
-
-def test_batched_step_fused_norm_route_consistent(setup):
-    """The fused normalize-epilogue route produces normalized rows and an
-    ESS/evidence consistent with its own log-weights (plumbing check on
-    the interpret-mode kernel; hardware parity in validate_tpu.py)."""
-    models_lg, y, M = setup
-    # UCSV models (the fused kernel's model family)
-    thetas = jnp.stack(
-        [jnp.asarray([0.3, 2.0, -0.5, -0.5]) for _ in range(M)]
-    )
-    models = jax.vmap(smc.ucsv_model)(thetas)
-    cfg = smc.PFConfig("systematic", 1.0, "on")
-    init = batched_pf_init(jax.random.key(0), models, 128, M, y[0])
-    out = batched_pf_step(
-        jax.random.key(1), models, init.particles, init.log_weights,
-        y[1], cfg,
-    )
-    lw = np.asarray(out.log_weights)
-    np.testing.assert_allclose(np.exp(lw).sum(-1), np.ones(M), rtol=1e-5)
-    ess = np.asarray(out.ess)
-    assert ((ess > 0) & (ess <= 128 + 1e-3)).all()
-    np.testing.assert_allclose(
-        ess, 1.0 / (np.exp(lw) ** 2).sum(-1), rtol=1e-3
-    )
-    assert np.isfinite(np.asarray(out.log_mean)).all()
-
-
-def test_fused_sv_deterministic_at_sigma_zero():
-    """σ=0 collapses the fused SV kernel's transition to the deterministic
-    AR(1) mean — output and logw must match the closed form bitwise-ish,
-    independent of the PRNG draws (generic-builder plumbing check)."""
-    import math
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    M, N = 8, 256
-    thetas = jnp.tile(jnp.asarray([-1.0, 0.9, 0.0]), (M, 1))  # σ = 0
-    models = jax.vmap(smc.sv_model)(thetas)
-    x = jax.random.normal(jax.random.key(0), (M, N, 1)).astype(jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        x_new, logw = models.fused_propagate_reweight(3, 0.7, x)
-    expect = -1.0 + 0.9 * (x[..., 0] + 1.0)
-    np.testing.assert_allclose(
-        np.asarray(x_new[..., 0]), np.asarray(expect), rtol=1e-5, atol=1e-6
-    )
-    lw_expect = (
-        -0.5 * 0.49 * np.exp(-np.asarray(expect))
-        - 0.5 * np.asarray(expect)
-        - 0.5 * math.log(2 * math.pi)
-    )
-    np.testing.assert_allclose(np.asarray(logw), lw_expect, rtol=1e-4, atol=1e-5)
-
-
-def test_fused_lg_deterministic_at_q_zero():
-    """Q=0 makes the fused LG transition exactly A@x (univariate and the
-    2-dim Hodrick–Prescott companion form with its singular Q structure)."""
-    import math
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    M, N = 8, 256
-    # univariate: A=0.5, Q=0, R=0.8
-    thetas = jnp.tile(jnp.asarray([0.5, 0.0, 0.8]), (M, 1))
-    models = jax.vmap(smc.lg_model)(thetas)
-    x = jax.random.normal(jax.random.key(1), (M, N, 1)).astype(jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        x_new, logw = models.fused_propagate_reweight(4, 0.3, x)
-    np.testing.assert_allclose(
-        np.asarray(x_new[..., 0]), 0.5 * np.asarray(x[..., 0]), rtol=1e-5, atol=1e-6
-    )
-    delta = 0.3 - 0.5 * np.asarray(x[..., 0])
-    lw_expect = (
-        -0.5 * delta * delta / 0.8
-        - 0.5 * math.log(0.8)
-        - 0.5 * math.log(2 * math.pi)
-    )
-    np.testing.assert_allclose(np.asarray(logw), lw_expect, rtol=1e-4,
-                               atol=1e-5)
-
-    # Hodrick–Prescott (dx=2): the second state is a pure copy of the
-    # first (A row [1, 0], Q row 0) regardless of draws
-    hp = smc.hodrick_prescott(1600.0, np.array([1.0, 1.1, 1.2]))
-    hp_b = jax.tree.map(lambda a: jnp.broadcast_to(a, (M,) + a.shape), hp)
-    xs2 = jax.random.normal(jax.random.key(2), (M, N, 2)).astype(jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        x2_new, logw2 = hp_b.fused_propagate_reweight(5, 1.05, xs2)
-    np.testing.assert_allclose(
-        np.asarray(x2_new[..., 1]), np.asarray(xs2[..., 0]), rtol=1e-5, atol=1e-6
-    )
-    assert np.isfinite(np.asarray(logw2)).all()
-
-
-def test_batched_step_fused_lg_statistics(setup):
-    """LG batched steps routed through the generic fused kernel keep the
-    logZ estimator consistent with the exact Kalman filter. (Hardware
-    PRNG statistics — TPU only; interpret mode's PRNG is a zeros stub.)"""
-    if jax.default_backend() != "tpu":
-        pytest.skip("on-chip PRNG statistics are only real on hardware")
-    models, y, M = setup
-    cfg = smc.PFConfig("systematic", 1.0, "on")
-    _, _, z = batched_log_likelihood(jax.random.key(5), models, 512, M, y, cfg)
-    kz = jax.vmap(lambda m: smc.kalman_log_likelihood(m, y)[1])(models)
-    assert np.abs(np.asarray(z - kz)).max() < 3.0
-
-
-@pytest.mark.skipif(
-    jax.default_backend() != "tpu",
-    reason="interpret-mode prng_random_bits is a zeros stub in jax "
-    "(mosaic/interpret/interpret_pallas_call.py: 'TODO: Implement this "
-    "properly?') — the draw statistics are only real on hardware; "
-    "benchmarks/validate_tpu.py runs this check on the chip",
-)
-def test_ucsv_propagate_trend_increment_statistics():
-    """(x' − x)·exp(−½ logσε) ≈ N(0, 1) — on-chip PRNG statistics."""
-    planar, x, _, _, _ = _ucsv_prop_setup(M=2, N=2048, gamma=(0.0, 0.0))
-    z = np.asarray((x - planar[:, 0]) * jnp.exp(-0.5 * planar[:, 1]))
-    assert abs(z.mean()) < 0.05
-    assert abs(z.std() - 1.0) < 0.05
-
-
 # ---- round-5 additions: conditional resample skip, guided batch, carry ----
 
 def _select_formulation_step(key, models, particles, log_w, y, cfg):
@@ -525,7 +110,7 @@ def test_batched_adaptive_cond_bitwise_matches_select(setup):
     cond's skip branch)."""
     models, y, M = setup
     n = 64
-    cfg = smc.PFConfig("systematic", 0.5, "off")
+    cfg = smc.PFConfig("systematic", 0.5)
     init = batched_pf_init(jax.random.key(0), models, n, M, y[0])
     # (a) uniform weights: ESS = n for every row, NO row fires
     lw_hi = jnp.full((M, n), -jnp.log(float(n)))
@@ -545,64 +130,6 @@ def test_batched_adaptive_cond_bitwise_matches_select(setup):
         np.testing.assert_array_equal(np.asarray(out.log_mean), np.asarray(lmr))
 
 
-def test_batched_adaptive_cond_fused_route(setup):
-    """The cond rewrite also wraps the fused (Pallas interpret) resample
-    route; weights stay normalized and evidence finite both branches."""
-    models_lg, y, M = setup
-    thetas = jnp.stack([jnp.asarray([0.3, 2.0, -0.5, -0.5])] * M)
-    models = jax.vmap(smc.ucsv_model)(thetas)
-    cfg = smc.PFConfig("systematic", 0.5, "on")
-    n = 128
-    init = batched_pf_init(jax.random.key(0), models, n, M, y[0])
-    for lw0 in (
-        jnp.full((M, n), -jnp.log(float(n))),  # skip branch
-        jax.nn.log_softmax(
-            8.0 * jax.random.normal(jax.random.key(3), (M, n)), axis=-1
-        ),  # fire branch
-    ):
-        out = batched_pf_step(
-            jax.random.key(5), models, init.particles, lw0, y[1], cfg
-        )
-        lw = np.asarray(out.log_weights)
-        np.testing.assert_allclose(np.exp(lw).sum(-1), np.ones(M), rtol=1e-4)
-        assert np.isfinite(np.asarray(out.log_mean)).all()
-
-
-def test_fused_carry_epilogue_matches_xla_normalize():
-    """carry_logw route of the fused kernel (adaptive normalize epilogue,
-    VERDICT r4 #2) ≡ normalize=False + XLA normalize of lw + incr, at the
-    same on-chip PRNG seed."""
-    from sequential_monte_carlo_tpu.ops.batched_filter import _row_normalize
-
-    M, N = 16, 128
-    thetas = jnp.stack([jnp.asarray([0.3, 2.0, -0.5, -0.5])] * M)
-    models = jax.vmap(smc.ucsv_model)(thetas)
-    x = jax.random.normal(jax.random.key(0), (M, N, 3))
-    lw = jax.nn.log_softmax(
-        jax.random.normal(jax.random.key(1), (M, N)), axis=-1
-    )
-    seed = jnp.asarray(1234, jnp.int32)
-    y = jnp.asarray(0.7)
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        x_a, log_norm, row_lse, ess = models.fused_propagate_reweight(
-            seed, y, x, normalize=True, carry_logw=lw
-        )
-        x_b, incr = models.fused_propagate_reweight(
-            seed, y, x, normalize=False
-        )
-    np.testing.assert_array_equal(np.asarray(x_a), np.asarray(x_b))
-    ref_norm, ref_lse, ref_ess = _row_normalize(lw + incr)
-    np.testing.assert_allclose(
-        np.asarray(log_norm), np.asarray(ref_norm), rtol=1e-5, atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(row_lse), np.asarray(ref_lse), rtol=1e-5, atol=1e-5
-    )
-    np.testing.assert_allclose(np.asarray(ess), np.asarray(ref_ess), rtol=1e-4)
-
-
 def test_batched_guided_proposal_matches_kalman(setup):
     """Guided inner filters through the BATCHED layer (VERDICT r4 #6): a
     transition proposal with the importance correction threaded via
@@ -616,7 +143,7 @@ def test_batched_guided_proposal_matches_kalman(setup):
         initial=lambda mm: mm.initial_distribution(),
         step=lambda mm, xp: mm.transition_distribution(xp),
     )
-    cfg = smc.PFConfig("systematic", 1.0, "off", proposal=prop)
+    cfg = smc.PFConfig("systematic", 1.0, proposal=prop)
     _, _, logz = batched_log_likelihood(
         jax.random.key(11), models, 512, M, y, cfg
     )
@@ -634,52 +161,29 @@ def test_batched_guided_proposal_matches_kalman(setup):
     prop_w = Proposal(
         initial=lambda mm: mm.initial_distribution(), step=widened
     )
-    cfg_w = smc.PFConfig("systematic", 1.0, "off", proposal=prop_w)
+    cfg_w = smc.PFConfig("systematic", 1.0, proposal=prop_w)
     _, _, logz_w = batched_log_likelihood(
         jax.random.key(12), models, 512, M, y, cfg_w
     )
     assert np.abs(np.asarray(logz_w - kz)).max() < 3.0
 
 
-def test_lg_fused_prep_bitwise(setup):
-    """Passing the hoisted eigh prep (ADVICE r4) is bitwise ≡ computing it
-    inside the call, for the dx=2 (HP, singular-Q) fused path."""
-    M, N = 8, 64
-    y0 = jnp.asarray(0.3)
-    hp = smc.hodrick_prescott(1600.0, jnp.asarray([0.1, 0.2, 0.15]))
-    models = jax.tree.map(lambda l: jnp.broadcast_to(l, (M,) + l.shape), hp)
-    x = jax.random.normal(jax.random.key(0), (M, N, 2))
-    seed = jnp.asarray(7, jnp.int32)
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        xa, wa = models.fused_propagate_reweight(seed, y0, x)
-        prep = models.fused_prep()
-        xb, wb = models.fused_propagate_reweight(seed, y0, x, prep=prep)
-    np.testing.assert_array_equal(np.asarray(xa), np.asarray(xb))
-    np.testing.assert_array_equal(np.asarray(wa), np.asarray(wb))
-
-
 def test_batched_apf_matches_kalman(setup):
     """Batched auxiliary-PF route (PFConfig(algorithm='apf'), VERDICT r4
-    #6 lookahead): logZ matches the exact Kalman oracle within MC error
-    on the XLA route. The fused route is plumbing-checked only — the
-    TPU-interpret PRNG is a zeros stub on CPU, so fused-propagate draw
-    STATISTICS verify on hardware (validate_tpu.py), same convention as
-    the bootstrap tests."""
+    #6 lookahead): logZ matches the exact Kalman oracle within MC error,
+    and one step keeps normalized weights and a finite evidence."""
     models, y, M = setup
     kz = jax.vmap(lambda m: smc.kalman_log_likelihood(m, y)[1])(models)
-    cfg = smc.PFConfig("systematic", 1.0, "off", algorithm="apf")
+    cfg = smc.PFConfig("systematic", 1.0, algorithm="apf")
     _, _, logz = batched_log_likelihood(
         jax.random.key(13), models, 512, M, y, cfg
     )
     assert np.abs(np.asarray(logz - kz)).max() < 2.5
 
-    cfg_on = smc.PFConfig("systematic", 1.0, "on", algorithm="apf")
     init = batched_pf_init(jax.random.key(0), models, 128, M, y[0])
     out = batched_pf_step(
         jax.random.key(1), models, init.particles, init.log_weights,
-        y[1], cfg_on,
+        y[1], cfg,
     )
     lw = np.asarray(out.log_weights)
     np.testing.assert_allclose(np.exp(lw).sum(-1), np.ones(M), rtol=1e-4)
@@ -691,46 +195,13 @@ def test_batched_apf_rejects_elastic():
 
     thetas = jnp.stack([jnp.asarray([0.5, 0.9, 0.8])] * 4)
     models = jax.vmap(smc.lg_model)(thetas)
-    cfg = smc.PFConfig("systematic", 1.0, "off", algorithm="apf")
+    cfg = smc.PFConfig("systematic", 1.0, algorithm="apf")
     init = batched_pf_init(jax.random.key(0), models, 64, 4, jnp.asarray(0.1))
     with _pytest.raises(ValueError, match="apf"):
         batched_pf_step(
             jax.random.key(1), models, init.particles, init.log_weights,
             jnp.asarray(0.2), cfg, active_n=jnp.asarray(32),
         )
-
-
-def test_walk_width_autotune_guards_divisibility():
-    """The 256-wide count-route tiles (r5) apply only when 256 | N — a
-    128-divisible N must keep 128-wide tiles instead of silently falling
-    through to the dense fallback kernel (r5 review finding)."""
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        _autotune_width,
-    )
-
-    assert _autotune_width(8192, True) == 128
-    assert _autotune_width(16384, True) == 256  # measured winner
-    assert _autotune_width(16512, True) == 128  # 128 | N, 256 ∤ N
-    assert _autotune_width(16384, False) == 128  # band route unchanged
-    assert _autotune_width(32768, True) == 256
-
-
-def test_walk_invalid_args_raise():
-    """n_sub is validated at entry on every route (r5 review): the count
-    route rejects subgroups outright; non-dividing n_sub raises."""
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        resample_gather_walk,
-    )
-
-    M, N, C = 8, 2048, 3
-    w = jnp.full((M, N), 1.0 / N)
-    xs = jnp.zeros((M, C, N))
-    u0 = jnp.full((M, 1), 0.5)
-    with pytest.raises(ValueError, match="count"):
-        resample_gather_walk(None, w, xs, tm=8, u0=u0, n_sub=2)
-    u = (jnp.arange(N, dtype=jnp.float32)[None, :] + u0) / N
-    with pytest.raises(ValueError, match="divide"):
-        resample_gather_walk(u, w, xs, tm=8, n_sub=3)
 
 
 def test_batched_config_validation():
@@ -759,24 +230,6 @@ def test_batched_config_validation():
         )
 
 
-def test_walk_formulation_and_xor_validation():
-    """formulation strings are validated; xor_mask (a band ablation) is
-    rejected on the count route instead of silently ignored (r5 review,
-    second pass)."""
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        resample_gather_walk,
-    )
-
-    M, N, C = 8, 2048, 3
-    w = jnp.full((M, N), 1.0 / N)
-    xs = jnp.zeros((M, C, N))
-    u0 = jnp.full((M, 1), 0.5)
-    with pytest.raises(ValueError, match="formulation"):
-        resample_gather_walk(None, w, xs, tm=8, u0=u0, formulation="Count")
-    with pytest.raises(ValueError, match="band"):
-        resample_gather_walk(None, w, xs, tm=8, u0=u0, xor_mask=True)
-
-
 def test_batched_apf_rejects_adaptive():
     """apf + ess_threshold < 1 raises (APF resamples by construction;
     silently ignoring the trigger was the r5 second-pass finding)."""
@@ -789,3 +242,236 @@ def test_batched_apf_rejects_adaptive():
             jnp.asarray(0.2),
             smc.PFConfig("systematic", 0.5, algorithm="apf"),
         )
+
+
+# ---- XLA resample+gather stage ---------------------------------------------
+
+SCHEMES = ["systematic", "stratified", "multinomial", "residual",
+           "residual_systematic"]
+
+
+def _index_cloud(m, n, dx=2):
+    """Particles whose every component holds the particle's own index, so a
+    gathered cloud reads back as its ancestor vector."""
+    idx = jnp.arange(n, dtype=jnp.float32)[None, :, None]
+    return jnp.broadcast_to(idx, (m, n, dx))
+
+
+@pytest.mark.parametrize("concentration", [0.0, 2.0, 8.0])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_resample_gather_matches_per_row_oracle(scheme, concentration):
+    """The batched stage ≡ the per-row resampler + take, row by row, with
+    the same split keys — bitwise, at any weight concentration."""
+    m, n, dx = 6, 256, 3
+    w = jax.nn.softmax(
+        concentration * jax.random.normal(jax.random.key(0), (m, n)), axis=-1
+    )
+    xs = jax.random.normal(jax.random.key(1), (m, n, dx))
+    k_res = jax.random.key(2)
+    out = _resample_gather(k_res, smc.PFConfig(scheme), xs, w, None)
+    keys = jax.random.split(k_res, m)
+    resampler = jax.jit(get_resampler(scheme))
+    for i in range(m):
+        anc = resampler(keys[i], w[i])
+        np.testing.assert_array_equal(
+            np.asarray(out[i]), np.asarray(jnp.take(xs[i], anc, axis=0))
+        )
+
+
+@pytest.mark.parametrize("scheme", ["systematic", "stratified", "multinomial"])
+def test_resample_gather_degenerate_weight(scheme):
+    """Point-mass weights: every output particle is the heavy one."""
+    m, n = 3, 256
+    w = jnp.zeros((m, n)).at[:, 17].set(1.0)
+    xs = jax.random.normal(jax.random.key(1), (m, n, 2))
+    out = _resample_gather(jax.random.key(2), smc.PFConfig(scheme), xs, w, None)
+    expect = jnp.broadcast_to(xs[:, 17:18, :], (m, n, 2))
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(expect))
+
+
+@pytest.mark.parametrize("scheme", ["systematic", "stratified"])
+def test_resample_gather_uniform_weights_identity(scheme):
+    """Uniform weights + one uniform per stratum ⇒ every particle is drawn
+    exactly once, in order."""
+    m, n = 2, 128
+    w = jnp.full((m, n), 1.0 / n)
+    out = _resample_gather(
+        jax.random.key(0), smc.PFConfig(scheme), _index_cloud(m, n), w, None
+    )
+    for i in range(m):
+        np.testing.assert_array_equal(
+            np.asarray(out[i, :, 0]), np.arange(n, dtype=np.float32)
+        )
+
+
+@pytest.mark.parametrize("scheme", ["systematic", "stratified", "multinomial"])
+def test_resample_gather_elastic_prefix(scheme):
+    """Elastic (padded-N) mode: only the live prefix is ever drawn, and a
+    systematic draw gives each live particle ⌊n·w⌋ or ⌈n·w⌉ offspring."""
+    m, n, active = 4, 256, 96
+    logits = 2.0 * jax.random.normal(jax.random.key(3), (m, n))
+    live = jnp.arange(n) < active
+    w = jax.nn.softmax(jnp.where(live[None, :], logits, -jnp.inf), axis=-1)
+    out = _resample_gather(
+        jax.random.key(4), smc.PFConfig(scheme), _index_cloud(m, n), w,
+        jnp.asarray(active, jnp.int32),
+    )
+    anc = np.asarray(out[..., 0]).astype(np.int64)
+    assert (anc < active).all()
+    if scheme == "systematic":
+        counts = np.stack([np.bincount(a[:active], minlength=n) for a in anc])
+        nw = active * np.asarray(w, np.float64)
+        assert (counts[:, :active] >= np.floor(nw[:, :active]) - 1).all()
+        assert (counts[:, :active] <= np.ceil(nw[:, :active]) + 1).all()
+        assert counts.sum(-1).tolist() == [active] * m
+
+
+def test_elastic_sorted_u_covers_live_prefix():
+    """The elastic uniform grid is sorted, stays below 1, and its first
+    active_n entries hold one point per live stratum."""
+    m, n, active = 3, 64, 40
+    u = _elastic_sorted_u(
+        jax.random.key(5), smc.PFConfig("systematic"), m, n,
+        jnp.asarray(active, jnp.int32), jnp.float32,
+    )
+    u = np.asarray(u)
+    assert (np.diff(u, axis=-1) >= 0).all() and (u < 1.0).all()
+    strata = np.floor(u[:, :active] * active)
+    np.testing.assert_array_equal(strata, np.tile(np.arange(active), (m, 1)))
+
+
+@pytest.mark.parametrize("concentration", [0.0, 2.0, 8.0])
+def test_search_ancestors_and_gather_match_numpy(concentration):
+    """The inverse-CDF search and the row gather ≡ NumPy searchsorted-left
+    + take, bitwise, on a CDF and uniforms fixed on the host."""
+    rng = np.random.default_rng(7)
+    m, n, dx = 8, 512, 3
+    logits = concentration * rng.standard_normal((m, n))
+    w = np.exp(logits - logits.max(-1, keepdims=True)).astype(np.float32)
+    cdf = np.cumsum(w, axis=-1, dtype=np.float32)
+    cdf = (cdf / cdf[:, -1:]).astype(np.float32)
+    u = ((np.arange(n, dtype=np.float32)[None, :]
+          + rng.uniform(size=(m, 1)).astype(np.float32)) / np.float32(n))
+    xs = rng.standard_normal((m, n, dx)).astype(np.float32)
+    anc = np.asarray(jax.vmap(search_ancestors)(cdf, u))
+    ref = np.stack([
+        np.minimum(np.searchsorted(cdf[i], u[i], side="left"), n - 1)
+        for i in range(m)
+    ])
+    np.testing.assert_array_equal(anc, ref)
+    got = np.asarray(gather_ancestors(jnp.asarray(xs), jnp.asarray(anc)))
+    np.testing.assert_array_equal(got, np.take_along_axis(xs, ref[..., None], 1))
+
+
+@pytest.mark.parametrize("make_u", [systematic_uniforms, stratified_uniforms])
+def test_uniform_grids_one_point_per_stratum(make_u):
+    m, n = 4, 128
+    u = np.asarray(make_u(jax.random.key(6), m, n))
+    assert u.shape == (m, n)
+    assert ((u >= 0) & (u < 1)).all()
+    np.testing.assert_array_equal(
+        np.floor(u * n), np.tile(np.arange(n), (m, 1))
+    )
+
+
+# ---- propagate + reweight stage --------------------------------------------
+# Uniform weights with ess_threshold < 1 never fire the resample trigger, so
+# one batched step propagates the given cloud as-is.
+
+def _propagate(models, x, y, seed=0):
+    m, n = x.shape[:2]
+    lw = jnp.full((m, n), -jnp.log(float(n)))
+    return batched_pf_step(
+        jax.random.key(seed), models, x, lw, jnp.asarray(y),
+        smc.PFConfig("systematic", 0.5),
+    )
+
+
+def _expect_log_norm(logw):
+    logw = np.asarray(logw, np.float64)
+    mx = logw.max(-1, keepdims=True)
+    return logw - mx - np.log(np.exp(logw - mx).sum(-1, keepdims=True))
+
+
+def test_propagate_sv_deterministic_at_sigma_zero():
+    """σ=0 collapses the SV transition to the AR(1) mean; the weights are
+    the N(0, exp(x'))-density of y, normalized per row."""
+    import math
+
+    m, n = 4, 256
+    models = jax.vmap(smc.sv_model)(jnp.tile(jnp.asarray([-1.0, 0.9, 0.0]), (m, 1)))
+    x = jax.random.normal(jax.random.key(0), (m, n, 1))
+    out = _propagate(models, x, 0.7)
+    expect = -1.0 + 0.9 * (np.asarray(x[..., 0]) + 1.0)
+    np.testing.assert_allclose(
+        np.asarray(out.particles[..., 0]), expect, rtol=1e-5, atol=1e-6
+    )
+    logw = -0.5 * 0.49 * np.exp(-expect) - 0.5 * expect - 0.5 * math.log(2 * math.pi)
+    np.testing.assert_allclose(
+        np.asarray(out.log_weights), _expect_log_norm(logw), rtol=1e-4, atol=1e-4
+    )
+
+
+@pytest.mark.parametrize("family", ["univariate", "hodrick_prescott"])
+def test_propagate_lg_deterministic_at_q_zero(family):
+    """Q=0 makes the LG transition exactly A@x: univariate, and the 2-dim
+    Hodrick–Prescott companion form whose second state copies the first."""
+    m, n = 4, 256
+    if family == "univariate":
+        models = jax.vmap(smc.lg_model)(jnp.tile(jnp.asarray([0.5, 0.0, 0.8]), (m, 1)))
+        x = jax.random.normal(jax.random.key(1), (m, n, 1))
+        out = _propagate(models, x, 0.3)
+        np.testing.assert_allclose(
+            np.asarray(out.particles[..., 0]), 0.5 * np.asarray(x[..., 0]),
+            rtol=1e-6, atol=1e-6,
+        )
+        delta = 0.3 - 0.5 * np.asarray(x[..., 0], np.float64)
+        np.testing.assert_allclose(
+            np.asarray(out.log_weights),
+            _expect_log_norm(-0.5 * delta * delta / 0.8), rtol=1e-4, atol=1e-4,
+        )
+    else:
+        hp = smc.hodrick_prescott(1600.0, np.array([1.0, 1.1, 1.2]))
+        models = jax.tree.map(lambda a: jnp.broadcast_to(a, (m,) + a.shape), hp)
+        x = jax.random.normal(jax.random.key(2), (m, n, 2))
+        out = _propagate(models, x, 1.05)
+        np.testing.assert_allclose(
+            np.asarray(out.particles[..., 1]), np.asarray(x[..., 0]),
+            rtol=1e-5, atol=1e-6,
+        )
+        assert np.isfinite(np.asarray(out.log_weights)).all()
+
+
+def test_propagate_ucsv_gamma_zero_freezes_vols():
+    """γ=0 makes both log-vol random walks degenerate: the vol planes come
+    back bitwise unchanged, whatever the draws."""
+    m, n = 4, 512
+    models = jax.vmap(smc.ucsv_model)(jnp.tile(jnp.asarray([0.0, 3.0, 0.2, 0.2]), (m, 1)))
+    x = jax.random.normal(jax.random.key(3), (m, n, 3))
+    out = _propagate(models, x, 1.3)
+    np.testing.assert_array_equal(np.asarray(out.particles[..., 1:]),
+                                  np.asarray(x[..., 1:]))
+
+
+def test_propagate_ucsv_trend_increment_statistics():
+    """(x' − x)·exp(−½ logσε) ≈ N(0, 1): the trend draws are standard
+    normals (threefry draws, real on every backend)."""
+    m, n = 2, 4096
+    models = jax.vmap(smc.ucsv_model)(jnp.tile(jnp.asarray([0.0, 3.0, 0.2, 0.2]), (m, 1)))
+    x = jax.random.normal(jax.random.key(4), (m, n, 3))
+    out = _propagate(models, x, 1.3)
+    z = np.asarray((out.particles[..., 0] - x[..., 0]) * jnp.exp(-0.5 * x[..., 1]))
+    assert abs(z.mean()) < 0.05
+    assert abs(z.std() - 1.0) < 0.05
+
+
+@pytest.mark.parametrize("scheme", ["systematic", "stratified", "multinomial"])
+def test_batched_lg_logz_matches_kalman(setup, scheme):
+    """LG batched logZ through every exact scheme stays within MC error of
+    the per-θ Kalman logZ."""
+    models, y, M = setup
+    _, _, z = batched_log_likelihood(
+        jax.random.key(5), models, 512, M, y, smc.PFConfig(scheme)
+    )
+    kz = jax.vmap(lambda m: smc.kalman_log_likelihood(m, y)[1])(models)
+    assert np.abs(np.asarray(z - kz)).max() < 3.0

@@ -1,12 +1,13 @@
 """Driver contract: entry() compiles single-device; dryrun_multichip runs
 on the virtual 8-device mesh."""
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
 
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def test_entry_compiles_and_runs():

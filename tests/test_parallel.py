@@ -111,7 +111,7 @@ def test_theta_only_mesh_ibis(setup):
     assert np.isfinite(float(stepped.ess))
 
 
-# -- fused Pallas route under θ-sharding (interpret mode on the CPU mesh) ----
+# -- UC-SV under θ- and particle-sharding ------------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -129,103 +129,11 @@ def ucsv_setup():
     return prior, y
 
 
-def _ucsv_cfg(fused, mesh=None, n=256, m=32):
-    inner = smc.PFConfig("systematic", 1.0, fused, mesh)
+def _ucsv_cfg(n=256, m=32):
+    inner = smc.PFConfig("systematic", 1.0)
     return smc.SMCConfig(
         n_particles=n, n_theta=m, chain=2, ess_threshold=0.5, inner=inner
     )
-
-
-def test_sharded_fused_matches_unsharded(ucsv_setup):
-    """The fused Pallas resample+propagate route composed per-shard inside
-    shard_map (θ-axis sharded, 4 shards × 8 rows) must reproduce the
-    unsharded fused route: the resample uniforms are drawn globally and the
-    kernel PRNG is offset by the shard's global tile index (VERDICT r1 #1 —
-    the fused path exercised under sharding). Interpret mode re-traces the
-    kernel body as jax ops, so CPU fusion may differ in the last float bits
-    between the shard_map and plain contexts — hence allclose, not equal;
-    the gather stage itself is asserted bitwise in
-    test_sharded_resample_kernel_bitwise."""
-    prior, y = ucsv_setup
-    base = smc.SMC2(smc.ucsv_model, prior, _ucsv_cfg("on"))
-    ref = base.init(jax.random.key(0), y)
-    for _ in range(3):
-        ref, _ = base.step(ref, y)
-
-    mesh = make_mesh(4, 1, devices=jax.devices()[:4])
-    sh = ShardedSMC2(smc.SMC2(smc.ucsv_model, prior, _ucsv_cfg("on")), mesh)
-    state = sh.init(jax.random.key(0), y)
-    for _ in range(3):
-        state, _ = sh.step(state, y)
-
-    np.testing.assert_allclose(
-        np.asarray(state.particles), np.asarray(ref.particles),
-        rtol=1e-4, atol=1e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(state.log_w), np.asarray(ref.log_w), rtol=1e-4, atol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(state.log_omega), np.asarray(ref.log_omega),
-        rtol=1e-4, atol=1e-4,
-    )
-
-
-def test_sharded_resample_kernel_bitwise():
-    """The chunk-walk kernel under shard_map (θ-sharded) is bitwise-equal to
-    the direct call: global uniforms in, deterministic gather out."""
-    from jax.sharding import PartitionSpec as P
-
-    from sequential_monte_carlo_tpu.kernels.resample_pallas import (
-        systematic_uniforms,
-    )
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        resample_gather_walk,
-    )
-    from jax.experimental.pallas import tpu as pltpu
-
-    m, n, dx = 32, 256, 3
-    kw, kx, ku = jax.random.split(jax.random.key(9), 3)
-    w = jax.nn.softmax(jax.random.normal(kw, (m, n)) * 3.0, axis=-1)
-    xs = jax.random.normal(kx, (m, dx, n))
-    u = systematic_uniforms(ku, m, n)
-    mesh = make_mesh(4, 1, devices=jax.devices()[:4])
-    with pltpu.force_tpu_interpret_mode():
-        direct = resample_gather_walk(u, w, xs)
-        sharded = jax.shard_map(
-            resample_gather_walk,
-            mesh=mesh,
-            in_specs=(P(THETA_AXIS, None), P(THETA_AXIS, None),
-                      P(THETA_AXIS, None, None)),
-            out_specs=P(THETA_AXIS, None, None),
-            check_vma=False,
-        )(u, w, xs)
-    np.testing.assert_array_equal(np.asarray(sharded), np.asarray(direct))
-
-
-def test_fused_agrees_with_xla_path_on_resample(ucsv_setup):
-    """One batched step, resample stage isolated: with a deterministic
-    propagate (ess_threshold=1 ⇒ always resample; compare gathered clouds
-    via the same uniforms) the fused kernel must equal searchsorted+take."""
-    from sequential_monte_carlo_tpu.kernels.resample_pallas import (
-        systematic_uniforms,
-    )
-    from sequential_monte_carlo_tpu.kernels.resample_walk import (
-        resample_gather_walk,
-    )
-
-    m, n, dx = 16, 256, 3
-    kw, kx, ku = jax.random.split(jax.random.key(5), 3)
-    w = jax.nn.softmax(jax.random.normal(kw, (m, n)) * 2.0, axis=-1)
-    xs = jax.random.normal(kx, (m, dx, n))
-    u = systematic_uniforms(ku, m, n)
-    fused = resample_gather_walk(u, w, xs, interpret=True)
-    cdf = jnp.cumsum(w, axis=-1)
-    cdf = cdf / cdf[..., -1:]
-    anc = jax.vmap(lambda c, uu: jnp.searchsorted(c, uu, side="left"))(cdf, u)
-    anc = jnp.clip(anc, 0, n - 1)
-    ref = jax.vmap(lambda x, a: jnp.take(x, a, axis=1))(xs, anc)
-    np.testing.assert_array_equal(np.asarray(fused), np.asarray(ref))
 
 
 # -- elastic exchange (N-doubling) under sharding (VERDICT r2 #4) -----------
@@ -305,15 +213,11 @@ def test_sharded_elastic_grow_matches_unsharded(setup):
 
 
 def test_particle_sharded_mesh_disables_fused_and_runs(ucsv_setup):
-    """With the particle axis sharded, the fused route must be disabled
-    (pallas_call can't span a sharded particle dim) and the XLA fallback
-    must still run correctly under GSPMD."""
-    from sequential_monte_carlo_tpu.ops.batched_filter import _use_fused
-
+    """With the particle axis sharded, the batched filter runs correctly
+    under GSPMD."""
     prior, y = ucsv_setup
     mesh = make_mesh(4, 2)
-    cfg = _ucsv_cfg("on", mesh=mesh)
-    assert not _use_fused(cfg.inner)
+    cfg = _ucsv_cfg()
 
     sh = ShardedSMC2(smc.SMC2(smc.ucsv_model, prior, cfg), mesh)
     state = sh.init(jax.random.key(0), y)
@@ -324,15 +228,12 @@ def test_particle_sharded_mesh_disables_fused_and_runs(ucsv_setup):
 
 def test_sharded_adaptive_cond_matches_unsharded(ucsv_setup):
     """The ADAPTIVE inner-resampling route (round 5: the whole resample
-    stage under one lax.cond, carried weights into the kernel epilogue)
-    composed with θ-sharding: the shard_map gather inside the cond's fire
-    branch and the carry_logw plane sharded over θ must reproduce the
-    unsharded adaptive route (same allclose discipline as the
-    always-resample sharded test above)."""
+    stage under one lax.cond) composed with θ-sharding must reproduce the
+    unsharded adaptive route."""
     prior, y = ucsv_setup
 
-    def cfg(mesh=None):
-        inner = smc.PFConfig("systematic", 0.5, "on", mesh)
+    def cfg():
+        inner = smc.PFConfig("systematic", 0.5)
         return smc.SMCConfig(
             n_particles=256, n_theta=32, chain=2, ess_threshold=0.5,
             inner=inner,
@@ -358,47 +259,5 @@ def test_sharded_adaptive_cond_matches_unsharded(ucsv_setup):
     )
     np.testing.assert_allclose(
         np.asarray(state.log_omega), np.asarray(ref.log_omega),
-        rtol=1e-4, atol=1e-4,
-    )
-
-
-def test_sharded_adaptive_prep_carry_combo():
-    """The θ-sharded fused route with BOTH optional shard_map operands at
-    once — the hoisted eigh prep (dx=2 Hodrick–Prescott, singular Q) and
-    the adaptive carry_logw plane — matches the unsharded call (the
-    in_specs threading appends them in a fixed order; this pins it)."""
-    from sequential_monte_carlo_tpu.ops.batched_filter import (
-        batched_pf_step,
-    )
-
-    M, N = 16, 128
-    hp = smc.hodrick_prescott(1600.0, jnp.asarray([0.1, 0.2, 0.15]))
-    models = jax.tree.map(lambda l: jnp.broadcast_to(l, (M,) + l.shape), hp)
-    prep = models.fused_prep()
-    x = jax.random.normal(jax.random.key(0), (M, N, 2))
-    lw = jax.nn.log_softmax(
-        8.0 * jax.random.normal(jax.random.key(1), (M, N)), axis=-1
-    )  # concentrated: the adaptive trigger fires → carry + gather run
-    y1 = jnp.asarray(0.4)
-
-    cfg_plain = smc.PFConfig("systematic", 0.5, "on")
-    ref = batched_pf_step(
-        jax.random.key(2), models, x, lw, y1, cfg_plain, fused_prep=prep
-    )
-    mesh = make_mesh(4, 1, devices=jax.devices()[:4])
-    cfg_mesh = smc.PFConfig("systematic", 0.5, "on", mesh)
-    out = batched_pf_step(
-        jax.random.key(2), models, x, lw, y1, cfg_mesh, fused_prep=prep
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.particles), np.asarray(ref.particles),
-        rtol=1e-4, atol=1e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.log_weights), np.asarray(ref.log_weights),
-        rtol=1e-4, atol=1e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.log_mean), np.asarray(ref.log_mean),
         rtol=1e-4, atol=1e-4,
     )

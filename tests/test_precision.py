@@ -1,6 +1,6 @@
 """f32-vs-f64 numerics validation (SURVEY.md §7 hard part (d)).
 
-TPUs compute in f32; the reference in Julia f64. These tests bound the
+The library computes in f32; the reference in Julia f64. These tests bound the
 accumulation error of the f32 log-evidence path against f64 references on
 CPU — the drift must stay far inside Monte-Carlo error.
 """

@@ -391,7 +391,7 @@ def test_smc2_apf_inner_filter(lg_setup, oracle_mean):
     stack (online steps + PMMH rejuvenation) runs APF inner filters."""
     prior, y = lg_setup
     cfg = CFG._replace(
-        inner=smc.PFConfig("systematic", 1.0, "off", algorithm="apf")
+        inner=smc.PFConfig("systematic", 1.0, algorithm="apf")
     )
     sampler = smc.SMC2(smc.lg_model, prior, cfg)
     state, infos = sampler.run(jax.random.key(23), y)
